@@ -1,0 +1,139 @@
+"""Wavefront relaxation (kernel K2) and the planner around it: the port's
+plain relaxation is bit-exact with the JAX package's Pallas kernel
+(interpret mode) and XLA loop; plan_world/coarse_potential agree exactly."""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nclt_slam_tpu.config import DEFAULT as JDEFAULT
+from nclt_slam_tpu.ops.wavefront_pallas import wavefront_potential_pallas
+from nclt_slam_tpu.planning import wavefront as jwf
+from nclt_slam_tpu_torch.config import DEFAULT
+from nclt_slam_tpu_torch.ops import wavefront as ops
+from nclt_slam_tpu_torch.planning import wavefront as twf
+
+BIG = 1e9
+
+
+def _grid(rng, H, W, lethal_frac=0.15):
+    cost = rng.uniform(0.1, 1.0, (H, W)).astype(np.float32)
+    cost[rng.rand(H, W) < lethal_frac] = BIG
+    phi0 = np.full((H, W), BIG, np.float32)
+    phi0[rng.randint(H), rng.randint(W)] = 0.0
+    return cost, phi0
+
+
+def _xla_relax(tc, phi0, n_iter):
+    def body(_, p):
+        return jnp.minimum(p, jwf._neighbor_min(p, tc, 1.4142135))
+    return np.asarray(jax.jit(lambda t, p: jax.lax.fori_loop(
+        0, n_iter, body, p))(jnp.asarray(tc), jnp.asarray(phi0)))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_plain_equals_pallas_and_xla_square(seed):
+    rng = np.random.RandomState(seed)
+    W, n_iter = 64, 128
+    cost, phi0 = _grid(rng, W, W)
+    got = ops.wavefront_relax(torch.from_numpy(cost)[None],
+                              torch.from_numpy(phi0)[None], n_iter)[0].numpy()
+    pallas = np.asarray(wavefront_potential_pallas(
+        jnp.asarray(cost), jnp.asarray(phi0), n_iter=n_iter, res=0.1,
+        interpret=True))
+    assert (got < BIG).mean() > 0.5
+    assert np.array_equal(got, pallas)
+    assert np.array_equal(got, _xla_relax(cost, phi0, n_iter))
+
+
+def test_plain_equals_xla_non_square_batch():
+    rng = np.random.RandomState(5)
+    H, W, n_iter = 30, 58, 96       # the coarse map's aspect, scaled down
+    grids = [_grid(rng, H, W) for _ in range(3)]
+    tc = torch.from_numpy(np.stack([g[0] for g in grids]))
+    p0 = torch.from_numpy(np.stack([g[1] for g in grids]))
+    got = ops.wavefront_relax(tc, p0, n_iter).numpy()
+    for i, (cost, phi0) in enumerate(grids):
+        assert np.array_equal(got[i], _xla_relax(cost, phi0, n_iter))
+
+
+def test_wrapper_rejects_bad_input():
+    x = torch.zeros(1, 8, 8)
+    with pytest.raises(ValueError):
+        ops.wavefront_relax(x, torch.zeros(1, 8, 9), 4)
+    with pytest.raises(TypeError):
+        ops.wavefront_relax(x.double(), x.double(), 4)
+    y = torch.zeros(1, 8, 8).transpose(1, 2)
+    with pytest.raises(ValueError):
+        ops.wavefront_relax(y, y, 4)
+    with pytest.raises(ValueError):
+        ops._launch_shape(8, 2048)
+    with pytest.raises(ValueError):
+        ops._launch_shape(400, 400)     # plane exceeds shared memory
+    assert ops._launch_shape(192, 192) == (192, 5, 39)
+    assert ops._launch_shape(119, 232) == (232, 4, 30)
+
+
+def _cfgs(W=64):
+    kw = dict(window=W, path_len=96, use_pallas=True)
+    return (dataclasses.replace(JDEFAULT.planner, **kw),
+            dataclasses.replace(DEFAULT.planner, **kw))
+
+
+def _cost_windows(rng, B, W):
+    cost = rng.uniform(0.0, 40.0, (B, W, W)).astype(np.float32)
+    cost[rng.rand(B, W, W) < 0.08] = 99.0
+    cost[:, 30:34, 8:56] = 99.0          # a wall the path must go around
+    return cost
+
+
+def test_plan_world_and_coarse_potential_match_jax():
+    rng = np.random.RandomState(11)
+    B, W = 3, 64
+    jpc, tpc = _cfgs(W)
+    mc = JDEFAULT.map
+    # coarse potential on a small teach map (coarse shape 12 x 19)
+    teach = rng.choice(np.array([0, 1, 2], np.int8), (B, 90, 150),
+                       p=[0.8, 0.1, 0.1])
+    small_map = dataclasses.replace(mc, width_m=15.0, height_m=9.0)
+    tmap = dataclasses.replace(DEFAULT.map, width_m=15.0, height_m=9.0)
+    goal = np.stack([rng.uniform(-105, -91, B), rng.uniform(-50, -42, B)],
+                    -1).astype(np.float32)
+    jtc = jax.vmap(lambda g: jwf.coarse_traversal(g, small_map, jpc))(
+        jnp.asarray(teach))
+    jphi = jax.vmap(lambda t, g: jwf.coarse_potential(t, g, small_map, jpc))(
+        jtc, jnp.asarray(goal))
+    ttc = twf.coarse_traversal(torch.from_numpy(teach), tmap, tpc)
+    tphi = twf.coarse_potential(ttc, torch.from_numpy(goal), tmap, tpc)
+    assert np.array_equal(np.asarray(jtc), ttc.numpy())
+    assert np.array_equal(np.asarray(jphi), tphi.numpy())
+
+    # window plans: cost crops + border seed from a full-size coarse field
+    cost = _cost_windows(rng, B, W)
+    r0 = rng.randint(0, 800, B).astype(np.int32)
+    c0 = rng.randint(0, 1700, B).astype(np.int32)
+    base = np.stack([mc.origin_x + (c0 + 10) * 0.1,
+                     mc.origin_y + (r0 + 10) * 0.1], -1).astype(np.float32)
+    start = base
+    target = base + np.array([4.0, 4.5], np.float32)
+    cphi = rng.uniform(0, 60, (B, 119, 232)).astype(np.float32)
+    for coarse_goal in (target, target + 5.0):       # fresh, then stale
+        jres = jax.vmap(lambda c, a, b, s, t, p, g: jwf.plan_world(
+            c, a, b, s, t, mc, jpc, coarse_phi=p, coarse_goal=g))(
+            *map(jnp.asarray, (cost, r0, c0, start, target, cphi,
+                               coarse_goal)))
+        tres = twf.plan_world(*map(torch.from_numpy, (cost, r0, c0, start,
+                                                      target)),
+                              DEFAULT.map, tpc,
+                              coarse_phi=torch.from_numpy(cphi),
+                              coarse_goal=torch.from_numpy(coarse_goal))
+        assert np.array_equal(np.asarray(jres.ok), tres.ok.numpy())
+        assert np.array_equal(np.asarray(jres.n_path), tres.n_path.numpy())
+        assert np.array_equal(np.asarray(jres.potential),
+                              tres.potential.numpy())
+        assert np.array_equal(np.asarray(jres.path_xy), tres.path_xy.numpy())
+        assert tres.ok.all() and (tres.n_path > 5).all()
