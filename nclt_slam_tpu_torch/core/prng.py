@@ -148,3 +148,30 @@ def bernoulli(key, p, shape=None) -> torch.Tensor:
     if shape is None:
         shape = tuple(p.shape[key.dim() - 1:])
     return uniform(key, shape) < p
+
+
+def randint(key, shape, minval, maxval) -> torch.Tensor:
+    """``jax.random.randint`` for int32: integers in [minval, maxval).
+
+    ``minval``/``maxval`` are ints or integer tensors of the key's batch
+    shape (one bound per key).  JAX draws two 32-bit words per value from
+    the key's two halves and folds them with ``2**32 % span`` (computed as
+    ``(2**16 % span)**2 % span`` in wrapping uint32 arithmetic), which is
+    reproduced here in int64 with 32-bit masks."""
+    shape = _shape(shape)
+    k1, k2 = split(key).unbind(-2)
+    hi, lo = random_bits(k1, shape), random_bits(k2, shape)
+    batch = key.shape[:-1] + (1,) * len(shape)
+
+    def bound(v):
+        v = torch.as_tensor(v, dtype=torch.int64, device=key.device)
+        return v.reshape(batch) if v.dim() else v
+
+    minval, maxval = bound(minval), bound(maxval)
+    span = torch.where(maxval <= minval, torch.ones_like(maxval),
+                       (maxval - minval) & MASK32)
+    mult = (65536 % span)
+    mult = ((mult * mult) & MASK32) % span
+    off = (((hi % span) * mult) & MASK32) + lo % span
+    off = (off & MASK32) % span
+    return (minval + off).to(torch.int32)

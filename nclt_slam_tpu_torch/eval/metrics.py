@@ -1,6 +1,6 @@
 """Metric engine — port of the reference's thesis metrics (the campaign
-half of ``nclt_slam_tpu/eval/metrics.py``, copied as numpy; the trajectory
-benchmarks ATE/RPE/Procrustes come with the slices that use them).
+half of ``nclt_slam_tpu/eval/metrics.py`` and its 2-D Procrustes
+alignments, copied as numpy; ATE/RPE come with the slices that use them).
 
 compute_metrics.py semantics, bit-comparable where the inputs align:
 - directional WP coverage: split teach WPs and the GT trace at the
@@ -139,3 +139,61 @@ def aggregate_metrics(per_route: dict[str, dict]) -> dict:
             [r["final_d"] for r in rows
              if r["final_d"] is not None and np.isfinite(r["final_d"])])),
     }
+
+
+# ---------------------------------------------------------------------------
+# 2-D Procrustes alignment (vio_drift_monitor port)
+# ---------------------------------------------------------------------------
+
+def procrustes_align_2d(vio_xy: np.ndarray, gt_xy: np.ndarray) -> np.ndarray:
+    """Align a 2-D VIO track to GT with the drift monitor's handedness-robust
+    4-flip rotation+translation Procrustes; returns the aligned track.  This
+    is the transform the reference applies when writing vio_pose_dense.csv
+    (the repeat waypoint source)."""
+    if len(vio_xy) < 2:
+        return np.asarray(gt_xy[: len(vio_xy)])
+    xg, yg = gt_xy[:, 0], gt_xy[:, 1]
+    cxg, cyg = xg.mean(), yg.mean()
+    dxg, dyg = xg - cxg, yg - cyg
+    best, best_mean = None, np.inf
+    for fx, fy in ((1, 1), (-1, 1), (1, -1), (-1, -1)):
+        xv, yv = vio_xy[:, 0] * fx, vio_xy[:, 1] * fy
+        dxv, dyv = xv - xv.mean(), yv - yv.mean()
+        a = (dxv * dxg + dyv * dyg).sum()
+        b = (dxv * dyg - dyv * dxg).sum()
+        th = np.arctan2(b, a)
+        c, s = np.cos(th), np.sin(th)
+        rx = c * dxv - s * dyv + cxg
+        ry = s * dxv + c * dyv + cyg
+        err = np.hypot(rx - xg, ry - yg).mean()
+        if err < best_mean:
+            best, best_mean = np.stack([rx, ry], -1), err
+    return best
+
+
+def procrustes_drift_2d(vio_xyz: np.ndarray, gt_xy: np.ndarray):
+    """Handedness-robust 2-D Procrustes VIO->GT (vio_drift_monitor port):
+    picks the two highest-variance VIO axes, tries all four axis-flips,
+    rotation+translation aligns each, returns (max, mean) residual of the
+    best."""
+    variances = np.var(vio_xyz, axis=0)
+    h0, h1 = np.argsort(variances)[::-1][:2]
+    xv_base, yv_base = vio_xyz[:, h0], vio_xyz[:, h1]
+    xg, yg = gt_xy[:, 0], gt_xy[:, 1]
+    cx_g, cy_g = xg.mean(), yg.mean()
+    dxg, dyg = xg - cx_g, yg - cy_g
+
+    best = None
+    for fx, fy in ((1, 1), (-1, 1), (1, -1), (-1, -1)):
+        xv, yv = xv_base * fx, yv_base * fy
+        dxv, dyv = xv - xv.mean(), yv - yv.mean()
+        a = (dxv * dxg + dyv * dyg).sum()
+        b = (dxv * dyg - dyv * dxg).sum()
+        th = np.arctan2(b, a)
+        c, s = np.cos(th), np.sin(th)
+        rx = c * dxv - s * dyv + cx_g
+        ry = s * dxv + c * dyv + cy_g
+        err = np.hypot(rx - xg, ry - yg)
+        if best is None or err.mean() < best.mean():
+            best = err
+    return float(best.max()), float(best.mean())

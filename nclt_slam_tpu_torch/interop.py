@@ -27,11 +27,11 @@ def _registry() -> dict:
     from nclt_slam_tpu_torch.control import pure_pursuit, supervisor
     from nclt_slam_tpu_torch.dynamics import diffdrive
     from nclt_slam_tpu_torch.fusion import relay
-    from nclt_slam_tpu_torch.landmarks import store
+    from nclt_slam_tpu_torch.landmarks import matcher, store
     from nclt_slam_tpu_torch.planning import dispatcher, wavefront
     from nclt_slam_tpu_torch.rollout import campaign, repeat, scene_pack, teach
     from nclt_slam_tpu_torch.sensors import features, imu
-    from nclt_slam_tpu_torch.vio import drift_monitor, tracker
+    from nclt_slam_tpu_torch.vio import drift_monitor, preintegration, tracker
 
     types = [
         pure_pursuit.CtrlState, supervisor.SupervisorState,
@@ -41,7 +41,8 @@ def _registry() -> dict:
         teach.TeachCarry, teach.TeachTrace, teach.TeachResult,
         repeat.RepeatCarry, repeat.RepeatTrace, repeat.RepeatResult,
         features.Observation, features.SceneFeatures, imu.ImuState,
-        drift_monitor.DriftMonitorState, tracker.VioState,
+        drift_monitor.DriftMonitorState, tracker.VioState, tracker.VioAux,
+        preintegration.Preintegrated, matcher.AnchorResult,
         campaign.CampaignData,
     ]
     return {t.__name__: t for t in types}

@@ -23,24 +23,18 @@ an out-of-grid neighbour.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 import threading
 from pathlib import Path
 
 import torch
 
+from nclt_slam_tpu_torch.ops import build
+
 BIG = 1e9
 DIAG = 1.4142135
 
-_PKG_DIR = Path(__file__).resolve().parents[1]
-SOURCE = _PKG_DIR / "csrc" / "wavefront.cu"
-BUILD_DIR = _PKG_DIR.parent / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+SOURCE = build.CSRC / "wavefront.cu"
+NVCC_FLAGS = build.BASE_FLAGS + ("--fmad=false",)
 
 # the kernel keeps a (H + 2, W + 2) float32 plane in shared memory and one
 # column of threads per grid column (see csrc/wavefront.cu)
@@ -118,38 +112,10 @@ _lib = None
 _lib_lock = threading.Lock()
 
 
-def _nvcc() -> str:
-    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
-        if cand and (Path(cand) / "bin" / "nvcc").is_file():
-            return str(Path(cand) / "bin" / "nvcc")
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME); the wavefront "
-                           "kernel is built from source on first use")
-    return found
-
-
 def build_library() -> Path:
-    """Compile ``csrc/wavefront.cu`` into ``build/kernels/`` (named by a
-    hash of the source and flags, so an edit rebuilds) and return its path."""
-    src = SOURCE.read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"libwavefront_{tag}.so"
-    if out.is_file():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-                       check=True, capture_output=True, text=True)
-        os.replace(tmp, out)
-    except subprocess.CalledProcessError as e:
-        raise RuntimeError(f"nvcc failed building {SOURCE}:\n{e.stderr}") from e
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+    """Compile ``csrc/wavefront.cu`` into ``build/kernels/`` and return
+    the library's path."""
+    return build.build_library(SOURCE, NVCC_FLAGS)
 
 
 def _load():

@@ -16,7 +16,11 @@ import torch
 
 from nclt_slam_tpu_torch import config as cfg_mod
 from nclt_slam_tpu_torch.config import Config
-from nclt_slam_tpu_torch.eval.metrics import aggregate_metrics, route_metrics
+from nclt_slam_tpu_torch.eval.metrics import (
+    aggregate_metrics,
+    procrustes_align_2d,
+    route_metrics,
+)
 from nclt_slam_tpu_torch.planning.dispatcher import subsample_waypoints
 from nclt_slam_tpu_torch.rollout.repeat import (
     RepeatResult,
@@ -50,9 +54,25 @@ def _stack(trees):
     return type(trees[0])(*(torch.stack(xs) for xs in zip(*trees)))
 
 
+def campaign_device(device=None) -> torch.device:
+    """The device a campaign runs on: the CUDA card unless the caller names
+    another (``device="cpu"`` for a CPU run).  Raises when no card is
+    present and none was named: there is no silent CPU fallback."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the "
+                           "campaign on the CPU")
+    return torch.device("cuda")
+
+
 def build_campaign(route_names=None, seed: int = 7, cfg: Config | None = None,
                    with_drops: bool = True, device=None) -> CampaignData:
+    """Pack the routes' scenes and routes, stacked along a leading route
+    dimension on ``device`` (default: the CUDA card, see
+    ``campaign_device``)."""
     cfg = cfg or cfg_mod.DEFAULT
+    device = campaign_device(device)
     names = route_names or ALL_ROUTES
     scene = default_scene(seed)
     routes = [get_route(n, seed) for n in names]
@@ -110,21 +130,24 @@ def run_campaign_teach(data: CampaignData, cfg: Config, n_ticks: int,
 
 def teach_waypoints(data: CampaignData, teach: TeachResult, cfg: Config,
                     source: str = "auto"):
-    """Teach artefact -> repeat WP lists: the teach run's dense GT pose log
-    subsampled at 4 m.  Only ``source="gt"`` (what "auto" resolves to for
-    a teach without VIO) is ported; the aligned-VIO source comes with the
-    VIO slice.  Returns (wps (B, max_wp, 2), n_wps (B,)) on the routes'
-    device."""
+    """Teach artefact -> repeat WP lists from the teach run's dense pose
+    log subsampled at 4 m.  ``source``: "vio" uses the teach VIO track
+    Procrustes-aligned to GT (what the reference's drift monitor writes, so
+    the repeat WPs inherit the teach drift); "gt" uses ground truth;
+    "auto" picks vio when the teach ran VIO (cfg.teach.run_vio).  Returns
+    (wps (B, max_wp, 2), n_wps (B,)) on the routes' device."""
     if source == "auto":
         source = "vio" if cfg.teach.run_vio else "gt"
-    if source != "gt":
-        raise NotImplementedError(
-            f"teach_waypoints source={source!r} comes with the VIO slice")
+    if source not in ("vio", "gt"):
+        raise ValueError(f"teach_waypoints: unknown source {source!r}")
     gt = np.asarray(teach.trace.gt_xy)        # (R, T, 2)
+    vio = np.asarray(teach.trace.vio_xy)
     done = np.asarray(teach.trace.done)
     wps_list, n_list = [], []
     for i in range(gt.shape[0]):
         live = gt[i][~done[i]]
+        if source == "vio":
+            live = procrustes_align_2d(vio[i][~done[i]], live)
         wps, n = subsample_waypoints(live, len(live), cfg.planner)
         wps_list.append(wps)
         n_list.append(n)

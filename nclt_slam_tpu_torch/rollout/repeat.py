@@ -8,8 +8,17 @@ pose; the costmap/planner/dispatcher/follower produce the next command.
 The route batch is the leading dimension; cadence gates are host-side
 ``if``s, per-route predicates ``torch.where`` masks.
 
-Only GT localization (``cfg.mode.use_gt``) is ported; the VIO, anchor and
-fusion modes come with later slices of the port.
+The localization source is selected by ``cfg.mode``: ``use_gt`` passes GT
+straight through; the full stack (``config.ours()``: VIO with IMU, visual
+anchors at 2 Hz, the v55 relay) runs the 200 Hz IMU block, the feature
+observation with the dropped obstacles as occluders, ``vio_frame``, the
+anchor matcher and ``fusion_tick``, and holds the robot at spawn until the
+relay has committed its SLAM alignment.  The encoder-only and RGB-D-only
+ablations, the stock RPP follower, the GT-stall watchdog, stock waypoint
+following and local BA raise ``NotImplementedError``.
+
+Like the JAX package, the IMU block and the relay draw from the same
+``k_fuse`` key of a tick.
 """
 
 from __future__ import annotations
@@ -32,8 +41,15 @@ from nclt_slam_tpu_torch.dynamics.diffdrive import (
     nav_substeps,
     robot_pose3d,
 )
-from nclt_slam_tpu_torch.fusion.relay import FusionState, init_fusion
-from nclt_slam_tpu_torch.landmarks.store import LandmarkStore
+from nclt_slam_tpu_torch.fusion.relay import (
+    FusionState,
+    anchor_update,
+    fusion_tick,
+    init_fusion,
+    select_routes,
+)
+from nclt_slam_tpu_torch.landmarks.matcher import match_tick
+from nclt_slam_tpu_torch.landmarks.store import LandmarkStore, init_store
 from nclt_slam_tpu_torch.mapping.occupancy import (
     crop_window,
     empty_grid,
@@ -50,15 +66,22 @@ from nclt_slam_tpu_torch.planning.dispatcher import (
 )
 from nclt_slam_tpu_torch.planning.wavefront import coarse_potential, coarse_traversal
 from nclt_slam_tpu_torch.rollout.scene_pack import PackedRoute, PackedScene
-from nclt_slam_tpu_torch.rollout.teach import stack_trace
+from nclt_slam_tpu_torch.rollout.teach import GRAVITY, _scene_features, stack_trace
 from nclt_slam_tpu_torch.scene.terrain import terrain_height
 from nclt_slam_tpu_torch.sensors.depth import (
     cam_points_to_world,
     depth_to_cam_points,
     render_depth,
 )
-from nclt_slam_tpu_torch.sensors.imu import ImuState, init_imu
-from nclt_slam_tpu_torch.vio.tracker import VioState, init_vio
+from nclt_slam_tpu_torch.sensors.features import observe
+from nclt_slam_tpu_torch.sensors.imu import ImuState, imu_block, init_imu
+from nclt_slam_tpu_torch.vio.tracker import (
+    VioState,
+    emit_body_pos,
+    emit_slam_pose,
+    init_vio,
+    vio_frame,
+)
 
 
 class RepeatCarry(NamedTuple):
@@ -109,10 +132,19 @@ class RepeatResult(NamedTuple):
 
 
 def _check_ported(cfg: Config):
-    if not cfg.mode.use_gt:
+    m = cfg.mode
+    if not (m.use_gt or (m.use_slam and m.use_anchors and m.use_imu)):
         raise NotImplementedError(
-            "only GT localization (config.gt_localization()) is ported; "
-            "the VIO/anchor/fusion and encoder modes come with later slices")
+            "GT localization and the full stack (config.ours()) are ported; "
+            "the encoder-only and RGB-D-only ablations come with a later "
+            "slice")
+    if cfg.planner.stock_follow:
+        raise NotImplementedError(
+            "PlannerConfig.stock_follow comes with the stock slice of the "
+            "port")
+    if cfg.vio.enable_local_ba and not m.use_gt:
+        raise NotImplementedError(
+            "VioConfig.enable_local_ba needs kernel K3, which is not ported")
     if cfg.control.use_rpp:
         raise NotImplementedError(
             "ControlConfig.use_rpp (stock RPP baseline) comes with the stock "
@@ -127,15 +159,16 @@ def repeat_step(carry: RepeatCarry, tick: int, scene: PackedScene,
                 route: PackedRoute, teach_grid, store: LandmarkStore | None,
                 cfg: Config):
     """One 10 Hz repeat tick for the whole route batch.  ``store`` (the
-    teach landmarks) is read only by the anchor matcher, which GT
-    localization does not run."""
+    teach landmarks, stacked per route) is read by the anchor matcher."""
     _check_ported(cfg)
-    key, k_dyn = prng.split(carry.key, 6)[:, :2].unbind(1)
+    key, k_dyn, k_obs, k_match, k_fuse, k_vio = \
+        prng.split(carry.key, 6).unbind(1)
     t_now = torch.full((), tick, dtype=torch.float32,
                        device=carry.cmd.device) * 0.1
     f32, i32 = torch.float32, torch.int32
     B = carry.cmd.shape[0]
     dev = carry.cmd.device
+    mode = cfg.mode
 
     # --- supervisor decides the current collider set (GT-based poll) ---
     sup = supervisor_tick(carry.sup, carry.robot.xy, route.turnaround,
@@ -143,14 +176,68 @@ def repeat_step(carry: RepeatCarry, tick: int, scene: PackedScene,
     valid_now = scene.valid & ~(scene.drop_mask & sup.fired[:, None])
 
     # --- dynamics: apply the previous tick's command ---
-    robot, _ = nav_substeps(carry.robot, carry.cmd[:, 0], carry.cmd[:, 1],
-                            scene.xy, scene.radius, valid_now, k_dyn, cfg.sim)
+    robot, (pos_traj, quat_traj) = nav_substeps(
+        carry.robot, carry.cmd[:, 0], carry.cmd[:, 1], scene.xy,
+        scene.radius, valid_now, k_dyn, cfg.sim)
     gt_yaw = robot.yaw
     pos3, _ = robot_pose3d(robot)
 
-    # --- localization: GT straight through ---
-    imu, vio, fusion = carry.imu, carry.vio, carry.fusion
-    nav_xy, nav_yaw = robot.xy, gt_yaw
+    # --- localization ---
+    neg = torch.full((B,), -1, dtype=i32, device=dev)
+    zero_i = torch.zeros(B, dtype=i32, device=dev)
+    anchor_ok = torch.zeros(B, dtype=torch.bool, device=dev)
+    anchor_reason, anchor_inliers = neg, zero_i
+    anchor_shift = torch.zeros(B, dtype=f32, device=dev)
+    vio_aux = None
+    if mode.use_gt:
+        imu, vio, fusion = carry.imu, carry.vio, carry.fusion
+        nav_xy, nav_yaw = robot.xy, gt_yaw
+        regime = neg
+    else:
+        # 200 Hz synthetic IMU over this tick's substep trajectory
+        imu, imu_meas = imu_block(carry.imu, pos_traj, quat_traj,
+                                  1.0 / cfg.sim.physics_hz, k_fuse, cfg.imu)
+        # dropped obstacles block the line of sight to teach-time features
+        occluders = (scene.xy, scene.radius, scene.base_z, scene.height,
+                     valid_now & scene.drop_mask,
+                     torch.arange(scene.xy.shape[1], dtype=i32, device=dev))
+        obs = observe(pos3, robot.yaw, _scene_features(scene), valid_now,
+                      k_obs, cfg.camera, cfg.landmarks,
+                      yaw_rate=carry.cmd[:, 1], occluders=occluders,
+                      px_session_amp=cfg.camera.px_bias_session_amp)
+        vio, slam_ok, vio_aux = vio_frame(
+            carry.vio, obs, imu_meas,
+            cfg.sim.nav_decimation / cfg.sim.physics_hz,
+            torch.tensor(GRAVITY, device=dev), cfg.camera, cfg.vio,
+            mode.use_imu, key=k_vio)
+        slam_t, slam_q = emit_slam_pose(vio, cfg.camera)
+        slam_ok = slam_ok & torch.isfinite(slam_t).all(-1) & \
+            torch.isfinite(slam_q).all(-1)
+
+        # --- visual anchor matcher at 2 Hz, gated on GT like the
+        # reference matcher reading the sim's pose file ---
+        fusion = carry.fusion
+        if tick % cfg.landmarks.tick_period == 0:
+            drought_s = (tick - fusion.anchor_tick).clamp_min(0).to(f32) * 0.1
+            extra = torch.clamp_max(
+                cfg.landmarks.consistency_relax_per_s * drought_s,
+                cfg.landmarks.consistency_relax_max_m)
+            query = torch.cat([robot.xy, torch.zeros_like(gt_yaw)[:, None]],
+                              -1)
+            res = match_tick(store, obs, robot.xy, gt_yaw, query, k_match,
+                             cfg.camera, cfg.landmarks,
+                             consistency_extra_m=extra)
+            fusion = select_routes(res.ok, anchor_update(
+                fusion, res.xy, res.std, tick, cfg.fusion), fusion)
+            anchor_ok, anchor_reason = res.ok, res.reason
+            anchor_shift = torch.linalg.vector_norm(res.xy - robot.xy, dim=-1)
+            anchor_inliers = res.n_inliers
+
+        # --- v55 relay fusion tick ---
+        fusion, nav_x, nav_y, nav_yaw, regime = fusion_tick(
+            fusion, robot.xy[:, 0], robot.xy[:, 1], gt_yaw, slam_t, slam_q,
+            slam_ok, tick, k_fuse, cfg.encoder, cfg.fusion)
+        nav_xy = torch.stack([nav_x, nav_y], -1)
 
     # --- sensing + costmap at 2 Hz ---
     grid_live = carry.grid_live
@@ -209,15 +296,25 @@ def repeat_step(carry: RepeatCarry, tick: int, scene: PackedScene,
     v = torch.where(dispatch.done, torch.zeros_like(v), v)
     w = torch.where(dispatch.done, torch.zeros_like(w), w)
 
-    neg = torch.full((B,), -1, dtype=i32, device=dev)
-    zero_i = torch.zeros(B, dtype=i32, device=dev)
+    # --- stack bring-up hold: the robot sits at spawn until the relay has
+    # committed its one-time SLAM alignment (bounded by the hold ticks) ---
+    if mode.use_slam and not mode.use_gt and \
+            tick < cfg.fusion.startup_hold_ticks:
+        hold = ~fusion.committed
+        v = torch.where(hold, torch.zeros_like(v), v)
+        w = torch.where(hold, torch.zeros_like(w), w)
+
+    has_aux = vio_aux is not None
     trace = RepeatTrace(
         gt_xy=robot.xy, gt_yaw=gt_yaw, nav_xy=nav_xy,
-        regime=neg, anchor_ok=torch.zeros(B, dtype=torch.bool, device=dev),
-        anchor_reason=neg, anchor_shift=torch.zeros(B, dtype=f32, device=dev),
-        anchor_inliers=zero_i,
-        vio_xy=torch.zeros(B, 2, dtype=f32, device=dev),
-        vio_tracked=neg, vio_ndesc=neg, vio_nins=neg, vio_flags=zero_i,
+        regime=regime, anchor_ok=anchor_ok, anchor_reason=anchor_reason,
+        anchor_shift=anchor_shift, anchor_inliers=anchor_inliers,
+        vio_xy=(emit_body_pos(vio)[:, :2] if mode.use_slam
+                else torch.zeros(B, 2, dtype=f32, device=dev)),
+        vio_tracked=vio.n_tracked if not mode.use_gt else neg,
+        vio_ndesc=vio_aux.n_desc if has_aux else neg,
+        vio_nins=vio_aux.n_ins if has_aux else neg,
+        vio_flags=vio_aux.flags if has_aux else zero_i,
         wp_idx=dispatch.idx, cmd_v=v, done=dispatch.done, fired=sup.fired,
         goal_blocked=dispatch.goal_blocked, plan_fails=dispatch.plan_fails,
         recovery_phase=neg)
@@ -273,6 +370,9 @@ def run_repeat(scene: PackedScene, route: PackedRoute, teach_grid, wps,
     ``carry``/``tick0`` continue a previous chunk."""
     if carry is None:
         carry = init_repeat_carry(route, wps, n_wps, cfg, seed)
+    if store is None:
+        store = init_store(cfg.landmarks, route.spawn.shape[0],
+                           route.spawn.device)
     rows = []
     for t in range(tick0, tick0 + n_ticks):
         carry, tr = repeat_step(carry, t, scene, route, teach_grid, store,

@@ -9,8 +9,10 @@ poses become the dense pose log the repeat pass subsamples into waypoints.
 The route batch is the leading dimension of every tensor, and the tick loop
 is a Python loop with the cadence gates as host-side ``if``s.
 
-Only the GT-localized teach (``cfg.teach.run_vio=False``) is ported: the
-live VIO + drift monitor comes with the VIO slice.
+With ``cfg.teach.run_vio`` (the default) the teach also runs the live VIO
+every tick — IMU block, feature observation, ``vio_frame`` — and the drift
+monitor at its sample/check cadences; the observation is reused by the
+landmark recorder at the sensing cadence.
 """
 
 from __future__ import annotations
@@ -36,9 +38,21 @@ from nclt_slam_tpu_torch.mapping.occupancy import (
 from nclt_slam_tpu_torch.rollout.scene_pack import PackedRoute, PackedScene
 from nclt_slam_tpu_torch.sensors.depth import camera_pose, render_depth
 from nclt_slam_tpu_torch.sensors.features import SceneFeatures, observe
-from nclt_slam_tpu_torch.sensors.imu import ImuState, init_imu
-from nclt_slam_tpu_torch.vio.drift_monitor import DriftMonitorState, init_drift_monitor
-from nclt_slam_tpu_torch.vio.tracker import VioState, init_vio
+from nclt_slam_tpu_torch.sensors.imu import ImuState, imu_block, init_imu
+from nclt_slam_tpu_torch.vio.drift_monitor import (
+    DriftMonitorState,
+    check_drift,
+    init_drift_monitor,
+    push_sample,
+)
+from nclt_slam_tpu_torch.vio.tracker import (
+    VioState,
+    emit_body_pos,
+    init_vio,
+    vio_frame,
+)
+
+GRAVITY = (0.0, 0.0, -9.81)
 
 CHASE_WINDOW = 16  # WP lookahead window (reference scans next 10)
 
@@ -129,12 +143,7 @@ def teach_step(carry: TeachCarry, tick: int, scene: PackedScene,
                route: PackedRoute, cfg: Config):
     """One 10 Hz teach tick for the whole route batch.  Returns
     (new_carry, per-tick trace fields)."""
-    if cfg.teach.run_vio:
-        raise NotImplementedError(
-            "teach with run_vio=True (live VIO + drift monitor) comes with "
-            "the VIO slice of the port; use config.gt_localization() with "
-            "teach.run_vio=False")
-    key, k_dyn, k_obs, _k_imu, _k_vio = prng.split(carry.key, 5).unbind(1)
+    key, k_dyn, k_obs, k_imu, k_vio = prng.split(carry.key, 5).unbind(1)
 
     v, w, chase_idx, done = _chase_cmd(carry.robot, route, carry.chase_idx,
                                        cfg)
@@ -144,11 +153,35 @@ def teach_step(carry: TeachCarry, tick: int, scene: PackedScene,
 
     # drops are not present during teach
     valid_teach = scene.valid & ~scene.drop_mask
-    robot, _ = nav_substeps(carry.robot, v, w, scene.xy, scene.radius,
-                            valid_teach, k_dyn, cfg.sim)
+    robot, (pos_traj, quat_traj) = nav_substeps(
+        carry.robot, v, w, scene.xy, scene.radius, valid_teach, k_dyn,
+        cfg.sim)
     pos3, _ = robot_pose3d(robot)
-    imu, vio, drift = carry.imu, carry.vio, carry.drift
-    vio_xy = torch.zeros_like(robot.xy)
+
+    # --- live VIO + drift monitor (vio_drift_monitor gate) ---
+    obs = None
+    if cfg.teach.run_vio:
+        imu, imu_meas = imu_block(carry.imu, pos_traj, quat_traj,
+                                  1.0 / cfg.sim.physics_hz, k_imu, cfg.imu)
+        obs = observe(pos3, robot.yaw, _scene_features(scene), valid_teach,
+                      k_obs, cfg.camera, cfg.landmarks, yaw_rate=w)
+        vio, _, _ = vio_frame(
+            carry.vio, obs, imu_meas,
+            cfg.sim.nav_decimation / cfg.sim.physics_hz,
+            torch.tensor(GRAVITY, device=v.device), cfg.camera, cfg.vio,
+            True, key=k_vio)
+        vio_xy = emit_body_pos(vio)[:, :2]
+        drift = carry.drift
+        if tick % cfg.teach.drift_sample_period == 0:
+            drift = push_sample(drift, vio_xy, robot.xy)
+        if tick % cfg.teach.drift_check_period == \
+                cfg.teach.drift_check_period - 1:
+            drift = check_drift(drift, tick, cfg.teach)
+        vio_tracked = vio.n_tracked
+    else:
+        imu, vio, drift = carry.imu, carry.vio, carry.drift
+        vio_xy = torch.zeros_like(robot.xy)
+        vio_tracked = torch.full_like(carry.chase_idx, -1)
 
     # depth mapping + landmark recording at the costmap cadence (2 Hz)
     grid, store = carry.grid, carry.store
@@ -159,15 +192,17 @@ def teach_step(carry: TeachCarry, tick: int, scene: PackedScene,
         B = pts.shape[0]
         grid = integrate_depth(grid, robot.xy, pts.reshape(B, -1, 3),
                                dvalid.reshape(B, -1), cfg.map)
-        obs = observe(pos3, robot.yaw, _scene_features(scene), valid_teach,
-                      k_obs, cfg.camera, cfg.landmarks, yaw_rate=w)
+        if obs is None:
+            obs = observe(pos3, robot.yaw, _scene_features(scene),
+                          valid_teach, k_obs, cfg.camera, cfg.landmarks,
+                          yaw_rate=w)
         cam_p, _ = camera_pose(pos3, robot.yaw, cfg.camera)
         store = record_tick(store, obs, cam_p, robot.yaw, cfg.camera,
                             cfg.landmarks)
 
     trace = TeachTrace(gt_xy=robot.xy, gt_yaw=robot.yaw,
                        done=halted | done, cmd_v=v, vio_xy=vio_xy,
-                       vio_tracked=torch.full_like(carry.chase_idx, -1),
+                       vio_tracked=vio_tracked,
                        drift_max=drift.drift_max, aborted=drift.aborted)
     return TeachCarry(robot=robot, grid=grid, store=store,
                       chase_idx=chase_idx, key=key, done=carry.done | done,

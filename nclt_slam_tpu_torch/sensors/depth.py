@@ -17,6 +17,21 @@ import torch
 from nclt_slam_tpu_torch.config import CameraConfig
 from nclt_slam_tpu_torch.scene.terrain import terrain_height
 
+# base_link (FLU) -> OpenCV camera axes: p_cam = p_base @ R_BASE_CAM
+R_BASE_CAM = ((0.0, 0.0, 1.0),
+              (-1.0, 0.0, 0.0),
+              (0.0, -1.0, 0.0))
+
+
+def base_to_cam(p):
+    """``p @ R_BASE_CAM`` for points (..., 3): an exact axis permutation."""
+    return torch.stack([-p[..., 1], -p[..., 2], p[..., 0]], -1)
+
+
+def cam_to_base(p):
+    """``p @ R_BASE_CAM.T`` for points (..., 3)."""
+    return torch.stack([p[..., 2], -p[..., 0], -p[..., 1]], -1)
+
 
 def _rotate(R, p):
     """R (B, 3, 3) applied to points p (B, ..., 3), summed in j order."""

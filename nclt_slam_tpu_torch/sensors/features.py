@@ -8,6 +8,8 @@ from the JAX package, same RandomState streams); ``observe`` projects the
 visible points through the pinhole camera per tick, on tensors with a
 leading route dimension, and draws its noise from the threefry port so the
 same key gives the same observation as the JAX package.
+``cross_check_match`` is the mutual-nearest-neighbour Hamming matcher: kernel
+K1 on CUDA tensors, its plain version on CPU tensors (``ops/hamming.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 
 from nclt_slam_tpu_torch.config import CameraConfig, LandmarkConfig
 from nclt_slam_tpu_torch.core import prng
+from nclt_slam_tpu_torch.ops.hamming import cross_check, hamming_plain
 from nclt_slam_tpu_torch.scene.terrain import terrain_height
 from nclt_slam_tpu_torch.sensors.depth import camera_pose
 
@@ -379,3 +382,24 @@ def _bias_field(x, y, scale, phases):
     t2 = torch.sin(k * (-0.41 * x + 0.91 * y) + phases[1])
     t3 = torch.sin(k * (0.55 * x - 0.83 * y) + phases[2])
     return (t1 + t2 + t3) * 0.577
+
+
+def hamming(d1, d2):
+    """Pairwise Hamming distance between descriptor sets:
+    (..., A, W) x (..., B, W) int64 words -> (..., A, B) int32."""
+    return hamming_plain(d1, d2)
+
+
+def cross_check_match(desc_a, valid_a, desc_b, valid_b, max_dist: int = 64,
+                      return_dist: bool = False, site: str = "other"):
+    """BFMatcher(crossCheck=True) equivalent: mutual nearest neighbours
+    under a Hamming cap, per route.  desc_a (B, A, W), desc_b (B, Bm, W)
+    (or (B // group, Bm, W): see ``ops.hamming.cross_check``).  Returns
+    (match_idx (B, A) int64, matched (B, A)); with ``return_dist`` also the
+    per-a best distance (the novelty gate).  On CUDA tensors this is the
+    hand-written kernel K1, on CPU tensors its plain version."""
+    best_ab, matched, best_d = cross_check(desc_a, valid_a, desc_b, valid_b,
+                                           max_dist=max_dist, site=site)
+    if return_dist:
+        return best_ab.long(), matched, best_d
+    return best_ab.long(), matched

@@ -50,3 +50,47 @@ def test_wavefront_kernel_rejects_unsupported_shape(cuda):
     x = torch.zeros(1, 8, 2048, device=cuda)
     with pytest.raises(ValueError):
         ops.wavefront_relax(x, x, 4)
+
+
+def _descriptors(rng, P, A, W=8):
+    d = rng.randint(0, 2 ** 32, (P, A, W), dtype=np.uint64).astype(np.int64)
+    return torch.from_numpy(d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(15, 256, 384, 1), (75, 256, 256, 5),
+                                   (3, 7, 5, 1), (4, 1000, 300, 2),
+                                   (2, 33, 65, 1)])
+def test_hamming_kernel_equals_plain(cuda, shape):
+    from nclt_slam_tpu_torch.ops import hamming as hm
+
+    P, A, B, group = shape
+    rng = np.random.RandomState(P * A + B)
+    da = _descriptors(rng, P, A)
+    db = _descriptors(rng, P // group, B)
+    # shared and near-shared rows so that ties and matches occur
+    n = min(A, B) // 2
+    db[:, :n] = da[::group, :n]
+    db[:, n:n + n // 2] = da[::group, n:n + n // 2] ^ 1
+    va = torch.from_numpy(rng.rand(P, A) > 0.2)
+    vb = torch.from_numpy(rng.rand(P // group, B) > 0.2)
+    va[0] = False                                   # an all-invalid problem
+    ref = hm.cross_check_plain(da, va, db, vb)
+    before = hm.cross_check.launches
+    got = hm.cross_check(*(t.to(cuda) for t in (da, va, db, vb)),
+                         site="test")
+    torch.cuda.synchronize()
+    assert hm.cross_check.launches == before + 1
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r)
+    assert ref[1].any()
+
+
+@pytest.mark.cuda
+def test_hamming_kernel_rejects_unsupported(cuda):
+    from nclt_slam_tpu_torch.ops import hamming as hm
+
+    d = torch.zeros(1, 4, 9, dtype=torch.int64, device=cuda)   # 9 words
+    v = torch.ones(1, 4, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError):
+        hm.cross_check(d, v, d, v)

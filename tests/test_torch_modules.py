@@ -53,6 +53,10 @@ from nclt_slam_tpu_torch.scene.routes import get_route as t_get_route  # noqa: E
 from nclt_slam_tpu_torch.sensors import depth as tdepth  # noqa: E402
 from nclt_slam_tpu_torch.sensors import features as tfeat  # noqa: E402
 
+# the test workers share the CPU: one intra-op thread each keeps their
+# torch thread pools from oversubscribing it
+torch.set_num_threads(1)
+
 JC = jcfg.DEFAULT
 TC = tcfg.DEFAULT
 B = 2

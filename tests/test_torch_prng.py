@@ -1,6 +1,7 @@
 """The port's threefry PRNG against jax.random, bit for bit."""
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -81,3 +82,32 @@ def test_batched_keys_match_vmap():
                                                  maxval=3.0))(ks)
     assert np.array_equal(np.asarray(want),
                           prng.uniform(tks, (6, 2), -1.0, 3.0).numpy())
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_randint_exact(seed):
+    """Every span 1..256 (the RANSAC pool sizes) plus wide spans whose
+    2**32 % span multiplier wraps in uint32."""
+    jk, tk = _pair(seed)
+    spans = list(range(1, 257)) + [1000, 65535, 65536, 70001, 2 ** 31 - 1]
+    for span in spans:
+        want = np.asarray(jax.random.randint(jk, (7, 3), 0, span))
+        got = prng.randint(tk, (7, 3), 0, span).numpy()
+        assert np.array_equal(got, want), span
+    want = np.asarray(jax.random.randint(jk, (5,), -3, 11))
+    assert np.array_equal(prng.randint(tk, (5,), -3, 11).numpy(), want)
+    # maxval <= minval returns minval
+    assert (prng.randint(tk, (4,), 5, 5).numpy() == 5).all()
+
+
+def test_randint_batched_keys_and_bounds():
+    """One key and one upper bound per (route, candidate), as the matcher
+    draws its RANSAC samples under vmap."""
+    keys = jax.random.split(jax.random.PRNGKey(3), 12).reshape(3, 4, 2)
+    mx = np.random.RandomState(0).randint(0, 257, (3, 4)).astype(np.int32)
+    want = np.asarray(jax.vmap(jax.vmap(
+        lambda k, m: jax.random.randint(k, (200, 3), 0, jnp.maximum(m, 1))))(
+        keys, jnp.asarray(mx)))
+    got = prng.randint(torch.from_numpy(np.asarray(keys).astype(np.int64)),
+                       (200, 3), 0, torch.from_numpy(np.maximum(mx, 1)))
+    assert np.array_equal(got.numpy(), want)

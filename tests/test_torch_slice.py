@@ -38,6 +38,10 @@ from nclt_slam_tpu_torch.rollout import campaign as tcamp  # noqa: E402
 from nclt_slam_tpu_torch.rollout.repeat import run_repeat as t_run_repeat  # noqa: E402
 from nclt_slam_tpu_torch.rollout.teach import run_teach as t_run_teach  # noqa: E402
 
+# the test workers share the CPU: one intra-op thread each keeps their
+# torch thread pools from oversubscribing it
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parents[1]
 TICKS = 100
 POSE_ATOL = 1e-3
@@ -219,7 +223,7 @@ def test_waypoints_and_metrics_match_jax(runs):
 def test_build_campaign_matches_jax():
     names = ["02_north_forest", "13_cross_nws"]
     jd = jcamp.build_campaign(names)
-    td = tcamp.build_campaign(names)
+    td = tcamp.build_campaign(names, device="cpu")
     assert td.names == tuple(names)
     for part in ("routes", "scenes_teach", "scenes_repeat"):
         jp, tp = getattr(jd, part), getattr(td, part)
@@ -234,26 +238,54 @@ def test_build_campaign_matches_jax():
                 assert np.array_equal(b, a), (part, f)
 
 
+def test_build_campaign_runs_on_the_card_by_default():
+    """No device named: the CUDA card, or an error without one — never a
+    silent CPU campaign."""
+    if torch.cuda.is_available():
+        assert tcamp.campaign_device().type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tcamp.build_campaign(["01_road"])
+    assert tcamp.campaign_device("cpu") == torch.device("cpu")
+
+
 def test_port_runs_without_jax():
     code = (
         "import dataclasses, sys\n"
-        "from nclt_slam_tpu_torch import config\n"
+        "from nclt_slam_tpu_torch import config, interop\n"
+        "from nclt_slam_tpu_torch.core import lie, quat\n"
+        "from nclt_slam_tpu_torch.eval import metrics\n"
+        "from nclt_slam_tpu_torch.fusion import relay\n"
+        "from nclt_slam_tpu_torch.landmarks import matcher\n"
+        "from nclt_slam_tpu_torch.ops import hamming, wavefront\n"
+        "from nclt_slam_tpu_torch.vio import drift_monitor, preintegration, "
+        "tracker\n"
         "from nclt_slam_tpu_torch.rollout.campaign import build_campaign\n"
+        "from nclt_slam_tpu_torch.rollout.repeat import init_repeat_carry, "
+        "repeat_step\n"
         "from nclt_slam_tpu_torch.rollout.teach import init_teach_carry, "
         "teach_step\n"
+        "import torch\n"
         "cfg = config.gt_localization()\n"
-        "cfg = cfg.replace(teach=dataclasses.replace(cfg.teach, "
-        "run_vio=False))\n"
-        "data = build_campaign(['01_road'], cfg=cfg)\n"
+        "assert cfg.teach.run_vio\n"
+        "data = build_campaign(['01_road'], cfg=cfg, device='cpu')\n"
         "carry = init_teach_carry(data.routes, cfg)\n"
         "carry, tr = teach_step(carry, 0, data.scenes_teach, data.routes, "
         "cfg)\n"
-        "assert tr.gt_xy.shape == (1, 2)\n"
+        "assert tr.gt_xy.shape == (1, 2) and int(tr.vio_tracked[0]) >= 0\n"
+        "ours = config.ours()\n"
+        "wps = torch.zeros(1, ours.planner.max_waypoints, 2)\n"
+        "rc = init_repeat_carry(data.routes, wps, torch.tensor([1], "
+        "dtype=torch.int32), ours)\n"
+        "rc, rt = repeat_step(rc, 0, data.scenes_repeat, data.routes, "
+        "torch.zeros(1, ours.map.rows, ours.map.cols, dtype=torch.int8), "
+        "carry.store, ours)\n"
+        "assert int(rt.anchor_reason[0]) >= 0 and int(rt.regime[0]) >= 0\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m == 'nclt_slam_tpu' or m.startswith(('jax.', 'jaxlib', 'nclt_slam_tpu.'))]\n"
         "assert not bad, bad\n"
         "print('ok')\n")
-    env = dict(os.environ, PYTHONPATH=str(REPO))
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]

@@ -17,6 +17,10 @@ from nclt_slam_tpu_torch.config import DEFAULT
 from nclt_slam_tpu_torch.ops import wavefront as ops
 from nclt_slam_tpu_torch.planning import wavefront as twf
 
+# the test workers share the CPU: one intra-op thread each keeps their
+# torch thread pools from oversubscribing it
+torch.set_num_threads(1)
+
 BIG = 1e9
 
 
