@@ -45,18 +45,26 @@ SOURCE = build.CSRC / "hamming.cu"
 
 
 def popcount32(x):
-    """Set bits of int64 tensors holding uint32 values (SWAR, exact)."""
+    """Set bits of 32-bit words (SWAR, exact), held as int32 (two's
+    complement: the masks clear every sign-extended bit) or as int64 values
+    in [0, 2**32)."""
     x = x - ((x >> 1) & 0x55555555)
     x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
     x = (x + (x >> 4)) & 0x0F0F0F0F
-    return ((x * 0x01010101) & 0xFFFFFFFF) >> 24
+    return ((x * 0x01010101) >> 24) & 0xFF
+
+
+def _as_int32(d):
+    """int64 words in [0, 2**32) -> the same 32 bits as int32."""
+    return torch.where(d >= 2 ** 31, d - 2 ** 32, d).to(torch.int32)
 
 
 def hamming_plain(d1, d2):
     """Pairwise Hamming distance (..., A, W) x (..., B, W) -> (..., A, B)
-    int32."""
-    x = d1[..., :, None, :] ^ d2[..., None, :, :]
-    return popcount32(x).sum(-1).to(torch.int32)
+    int32.  The xor and popcount run on int32 words: half the bytes of the
+    int64 tensors."""
+    x = _as_int32(d1)[..., :, None, :] ^ _as_int32(d2)[..., None, :, :]
+    return popcount32(x).sum(-1, dtype=torch.int32)
 
 
 def _expand_b(desc_b, valid_b, P: int):
