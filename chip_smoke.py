@@ -80,8 +80,14 @@ PEAK_OPS_PER_S = 67e12        # 32-bit operations outside the tensor cores
 FIX_TEACH_ATOL_M = 1e-2
 FIX_REPEAT_ATOL_M = 5e-2
 FIX_OCC_MISMATCH_FRAC = 0.01
+# the ours replay also holds the estimates: the teach VIO track and the
+# waypoints taken from it, and the repeat's fused nav pose, whose rounding
+# grows through the relay's alignment and the anchors' corrections
+FIX_VIO_ATOL_M = 1e-3
+FIX_NAV_ATOL_M = 1e-2
 DIVERGE_M = 1e-4   # "divergence starts" at the first tick beyond this
-OURS_DISCRETE = ("regime", "anchor_ok", "anchor_reason", "wp_idx", "done")
+OURS_DISCRETE = ("regime", "anchor_ok", "anchor_reason", "vio_tracked",
+                 "wp_idx", "done")
 
 
 class SmokeError(RuntimeError):
@@ -356,8 +362,6 @@ def ours_fixture_phase(dev):
         vio_wps_max_err_m=wp_err,
         repeat_gt_xy_max_err_m=r_err, repeat_divergence_from_tick=r_start,
         repeat_nav_xy_max_err_m=n_err, repeat_nav_divergence_from_tick=n_start,
-        repeat_vio_tracked_first_diff=first_diff(r.vio_tracked,
-                                                 fx["repeat_vio_tracked"]),
         committed=rep.final.fusion.committed.cpu().tolist(),
         committed_ref=fx["repeat_committed"].tolist(),
         anchors_published=int(r.anchor_ok.sum()),
@@ -368,11 +372,20 @@ def ours_fixture_phase(dev):
     print("ours_fixture " + json.dumps(report), flush=True)
     check(t_err <= FIX_TEACH_ATOL_M, f"ours teach diverged from the "
           f"JAX fixture ({t_err} m)")
+    check(v_err <= FIX_VIO_ATOL_M, f"ours teach VIO track diverged from "
+          f"the JAX fixture ({v_err} m > {FIX_VIO_ATOL_M} m)")
     check(report["teach_done_equal"], "ours teach done flags differ")
+    check(report["teach_vio_tracked_first_diff"] is None,
+          f"ours teach VIO match counts differ from the fixture from tick "
+          f"{report['teach_vio_tracked_first_diff']}")
     check(report["n_wps"] == report["n_wps_ref"],
           "ours teach waypoint counts differ from the fixture")
+    check(wp_err <= FIX_VIO_ATOL_M, f"ours VIO waypoints differ from the "
+          f"fixture ({wp_err} m > {FIX_VIO_ATOL_M} m)")
     check(r_err <= FIX_REPEAT_ATOL_M, f"ours repeat diverged from "
           f"the JAX fixture ({r_err} m)")
+    check(n_err <= FIX_NAV_ATOL_M, f"ours repeat nav pose diverged from "
+          f"the JAX fixture ({n_err} m > {FIX_NAV_ATOL_M} m)")
     check(report["committed"] == report["committed_ref"],
           "relay commit differs from the fixture")
     for f in OURS_DISCRETE:

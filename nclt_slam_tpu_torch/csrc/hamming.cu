@@ -38,8 +38,8 @@
 // in order (all threads of a warp read the same b word: a shared-memory
 // broadcast, no bank conflicts).  Pass 2 is the same with the roles
 // swapped.  Pass 3 applies the mutual test from the two key arrays.  The
-// descriptor width W is a template parameter (1..8) so the row lives in
-// registers.
+// descriptor width is fixed at the configuration's 8 words (256 bits,
+// LandmarkConfig.desc_words) so the row lives in registers.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,8 +47,8 @@
 namespace {
 
 constexpr int kBig = 1000000;
+constexpr int W = 8;  // 32-bit words a descriptor
 
-template <int W>
 __global__ void cross_check_kernel(
     const int64_t* __restrict__ desc_a, const bool* __restrict__ valid_a,
     const int64_t* __restrict__ desc_b, const bool* __restrict__ valid_b,
@@ -125,59 +125,37 @@ __global__ void cross_check_kernel(
   }
 }
 
-template <int W>
-cudaError_t launch(const int64_t* da, const bool* va, const int64_t* db,
-                   const bool* vb, int P, int A, int B, int group,
-                   int max_dist, int threads, int32_t* best_b, bool* matched,
-                   int32_t* best_d, cudaStream_t stream) {
+}  // namespace
+
+// Plain C entry point, loaded with ctypes.  desc_a (P, A, 8) and desc_b
+// (P / group, B, 8) are contiguous int64 device buffers holding uint32
+// values; valid_a (P, A) and valid_b (P / group, B) are bool; problem p
+// matches a set p against b set p / group.  Outputs best_b, best_d (int32)
+// and matched (bool) are (P, A).  The caller checks that BIG * max(A, B) +
+// max(A, B) fits an int32 and that the shared memory fits.  Returns the CUDA
+// error code of the launch (0 = launched; cudaErrorInvalidValue for a width
+// other than 8 words).
+extern "C" int hamming_cross_check(const void* desc_a, const void* valid_a,
+                                   const void* desc_b, const void* valid_b,
+                                   int P, int A, int B, int words, int group,
+                                   int max_dist, int threads, void* best_b,
+                                   void* matched, void* best_d,
+                                   void* stream) {
+  if (words != W) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = static_cast<size_t>(A + B) * W * sizeof(uint32_t) +
                       static_cast<size_t>(A + B) * sizeof(int) +
                       static_cast<size_t>(A + B);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        cross_check_kernel<W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        cross_check_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
-  cross_check_kernel<W><<<P, threads, smem, stream>>>(
-      da, va, db, vb, A, B, group, max_dist, best_b, matched, best_d);
-  return cudaGetLastError();
+  cross_check_kernel<<<P, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(desc_a), static_cast<const bool*>(valid_a),
+      static_cast<const int64_t*>(desc_b), static_cast<const bool*>(valid_b),
+      A, B, group, max_dist, static_cast<int32_t*>(best_b),
+      static_cast<bool*>(matched), static_cast<int32_t*>(best_d));
+  return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// Plain C entry point, loaded with ctypes.  desc_a (P, A, W) and desc_b
-// (P / group, B, W) are contiguous int64 device buffers holding uint32
-// values; valid_a (P, A) and valid_b (P / group, B) are bool; problem p
-// matches a set p against b set p / group.  Outputs best_b, best_d (int32)
-// and matched (bool) are (P, A).  The caller checks 1 <= W <= 8, that
-// BIG * max(A, B) + max(A, B) fits an int32 and that the shared memory fits.
-// Returns the CUDA error code of the launch (0 = launched).
-extern "C" int hamming_cross_check(const void* desc_a, const void* valid_a,
-                                   const void* desc_b, const void* valid_b,
-                                   int P, int A, int B, int W, int group,
-                                   int max_dist, int threads, void* best_b,
-                                   void* matched, void* best_d,
-                                   void* stream) {
-  const int64_t* da = static_cast<const int64_t*>(desc_a);
-  const int64_t* db = static_cast<const int64_t*>(desc_b);
-  const bool* va = static_cast<const bool*>(valid_a);
-  const bool* vb = static_cast<const bool*>(valid_b);
-  int32_t* bb = static_cast<int32_t*>(best_b);
-  int32_t* bd = static_cast<int32_t*>(best_d);
-  bool* m = static_cast<bool*>(matched);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  switch (W) {
-    case 1: err = launch<1>(da, va, db, vb, P, A, B, group, max_dist, threads, bb, m, bd, s); break;
-    case 2: err = launch<2>(da, va, db, vb, P, A, B, group, max_dist, threads, bb, m, bd, s); break;
-    case 3: err = launch<3>(da, va, db, vb, P, A, B, group, max_dist, threads, bb, m, bd, s); break;
-    case 4: err = launch<4>(da, va, db, vb, P, A, B, group, max_dist, threads, bb, m, bd, s); break;
-    case 5: err = launch<5>(da, va, db, vb, P, A, B, group, max_dist, threads, bb, m, bd, s); break;
-    case 6: err = launch<6>(da, va, db, vb, P, A, B, group, max_dist, threads, bb, m, bd, s); break;
-    case 7: err = launch<7>(da, va, db, vb, P, A, B, group, max_dist, threads, bb, m, bd, s); break;
-    case 8: err = launch<8>(da, va, db, vb, P, A, B, group, max_dist, threads, bb, m, bd, s); break;
-    default: err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
-}

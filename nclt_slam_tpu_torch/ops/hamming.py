@@ -37,7 +37,7 @@ from nclt_slam_tpu_torch.ops import build
 
 BIG = 10 ** 6
 INT32_MAX = 2 ** 31 - 1
-MAX_WORDS = 8
+WORDS = 8          # the kernel's descriptor width (256 bits)
 MAX_THREADS = 1024
 MAX_SMEM_BYTES = 232448
 
@@ -160,8 +160,8 @@ def cross_check(desc_a, valid_a, desc_b, valid_b, max_dist: int = 64,
         raise ValueError(f"cross_check: unsupported device {dev}")
     P, A, W = desc_a.shape
     Q, B, _ = desc_b.shape
-    if not 1 <= W <= MAX_WORDS:
-        raise ValueError(f"cross_check kernel: {W} words (1..{MAX_WORDS})")
+    if W != WORDS:
+        raise ValueError(f"cross_check kernel: {W} words (it takes {WORDS})")
     if _smem_bytes(A, B, W) > MAX_SMEM_BYTES:
         raise ValueError(f"cross_check kernel: ({A}, {B}) sets do not fit "
                          "shared memory")

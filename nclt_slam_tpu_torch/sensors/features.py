@@ -22,7 +22,7 @@ import torch
 
 from nclt_slam_tpu_torch.config import CameraConfig, LandmarkConfig
 from nclt_slam_tpu_torch.core import prng
-from nclt_slam_tpu_torch.ops.hamming import cross_check, hamming_plain
+from nclt_slam_tpu_torch.ops.hamming import cross_check
 from nclt_slam_tpu_torch.scene.terrain import terrain_height
 from nclt_slam_tpu_torch.sensors.depth import camera_pose
 
@@ -382,12 +382,6 @@ def _bias_field(x, y, scale, phases):
     t2 = torch.sin(k * (-0.41 * x + 0.91 * y) + phases[1])
     t3 = torch.sin(k * (0.55 * x - 0.83 * y) + phases[2])
     return (t1 + t2 + t3) * 0.577
-
-
-def hamming(d1, d2):
-    """Pairwise Hamming distance between descriptor sets:
-    (..., A, W) x (..., B, W) int64 words -> (..., A, B) int32."""
-    return hamming_plain(d1, d2)
 
 
 def cross_check_match(desc_a, valid_a, desc_b, valid_b, max_dist: int = 64,

@@ -23,7 +23,8 @@ class Preintegrated(NamedTuple):
     dt: torch.Tensor     # (B,) total time
 
 
-def empty_preint(batch: int, device=None) -> Preintegrated:
+def empty_preint(batch: int, device) -> Preintegrated:
+    """The identity deltas of ``batch`` routes on ``device``."""
     dq = torch.zeros(batch, 4, device=device)
     dq[:, 3] = 1.0
     return Preintegrated(dq=dq, dv=torch.zeros(batch, 3, device=device),

@@ -95,7 +95,7 @@ def test_batch_and_groups_match_jax():
 def test_cross_check_match_and_hamming_match_jax():
     rng = np.random.RandomState(0)
     d = rng.randint(0, 2 ** 32, (2, 8, 8), dtype=np.uint64).astype(np.uint32)
-    h = tfeat.hamming(_t(d), _t(d))
+    h = thm.hamming_plain(_t(d), _t(d))
     for b in range(2):
         assert np.array_equal(h[b].numpy(), np.asarray(
             jfeat.hamming(jnp.asarray(d[b]), jnp.asarray(d[b]))))

@@ -90,7 +90,8 @@ def test_hamming_kernel_equals_plain(cuda, shape):
 def test_hamming_kernel_rejects_unsupported(cuda):
     from nclt_slam_tpu_torch.ops import hamming as hm
 
-    d = torch.zeros(1, 4, 9, dtype=torch.int64, device=cuda)   # 9 words
     v = torch.ones(1, 4, dtype=torch.bool, device=cuda)
-    with pytest.raises(ValueError):
-        hm.cross_check(d, v, d, v)
+    for words in (4, 9):                  # the kernel takes 8 words
+        d = torch.zeros(1, 4, words, dtype=torch.int64, device=cuda)
+        with pytest.raises(ValueError):
+            hm.cross_check(d, v, d, v)

@@ -40,7 +40,11 @@ from test_rollout_e2e import (  # noqa: E402
 
 from nclt_slam_tpu import config as jcfg_mod  # noqa: E402
 from nclt_slam_tpu.rollout import campaign as jcamp  # noqa: E402
-from nclt_slam_tpu.rollout.repeat import run_repeat as j_run_repeat  # noqa: E402
+from nclt_slam_tpu.rollout.repeat import (  # noqa: E402
+    RepeatResult,
+    init_repeat_carry,
+)
+from nclt_slam_tpu.rollout.repeat import repeat_step as j_repeat_step  # noqa: E402
 from nclt_slam_tpu_torch import config as tcfg_mod  # noqa: E402
 from nclt_slam_tpu_torch import interop  # noqa: E402
 from nclt_slam_tpu_torch.rollout import campaign as tcamp  # noqa: E402
@@ -109,18 +113,34 @@ def runs():
     store = unbatch(teach.store)
     wps, n_wps = np.asarray(jw)[0], int(np.asarray(jn)[0])
     scene = tiny_scene(drop_on_path=True)
-    jr = jax.jit(lambda: j_run_repeat(scene, packed, grid, wps, n_wps, jr_cfg,
-                                      REPEAT_TICKS, store=store))()
+
+    # JAX's repeat as run_repeat's scan body, one jitted tick at a time, so
+    # that the carry test below steps the same compiled tick
+    def jstep(c, t):
+        return _jstep(c, jnp.int32(t), scene, packed, grid, store)
+
+    _jstep = jax.jit(lambda c, t, sc, rt, g, st: j_repeat_step(
+        c, t, sc, rt, g, st, jr_cfg))
+    # weakly typed scalars of the initial carry made strict, as lax.scan
+    # makes them, so that the tick compiles once
+    c = jax.tree_util.tree_map(lambda x: jnp.asarray(x, x.dtype),
+                               init_repeat_carry(packed, wps, n_wps, jr_cfg))
+    jtraces = []
+    for t in range(REPEAT_TICKS):
+        c, tr_t = jstep(c, t)
+        jtraces.append(tr_t)
+    jr = RepeatResult(trace=jax.tree_util.tree_map(
+        lambda *x: np.stack(x), *jtraces), final=c)
     tr = t_run_repeat(batch1(scene), batch1(packed),
                       torch.from_numpy(grid)[None],
                       torch.from_numpy(wps)[None],
                       torch.tensor([n_wps], dtype=torch.int32), tr_cfg,
                       REPEAT_TICKS, store=teach.store)
-    return teach, (jw, jn, tw, tn), jr, tr
+    return teach, (jw, jn, tw, tn), jr, tr, jstep
 
 
 def test_vio_waypoints_match_jax(runs):
-    teach, (jw, jn, tw, tn), _, _ = runs
+    teach, (jw, jn, tw, tn), *_ = runs
     assert np.array_equal(tn.numpy(), np.asarray(jn))
     np.testing.assert_allclose(tw.numpy(), np.asarray(jw), atol=1e-5)
     assert int(tn[0]) >= 2
@@ -129,7 +149,7 @@ def test_vio_waypoints_match_jax(runs):
 
 
 def test_ours_repeat_matches_jax(runs):
-    _, _, jr, tr = runs
+    _, _, jr, tr, _ = runs
     n = FLIP_TICK
     for f in DISCRETE:
         got = getattr(tr.trace, f)[0, :n].numpy()
@@ -149,7 +169,7 @@ def test_ours_repeat_matches_jax(runs):
 def test_ours_repeat_exercised_the_stack(runs):
     """The window is long enough to commit the relay, publish anchors,
     leave the startup hold and drive."""
-    _, _, jr, _ = runs
+    _, _, jr, *_ = runs
     assert bool(jr.final.fusion.committed)
     assert np.asarray(jr.trace.anchor_ok).sum() >= 2
     assert {1, 2} & set(np.unique(np.asarray(jr.trace.regime)).tolist())
@@ -175,22 +195,32 @@ def test_unported_modes_raise():
 
 def test_jax_ours_carry_round_trips_and_steps(runs):
     """A JAX ours-mode repeat carry taken mid-run — a filled VIO map, a
-    committed relay — converts into the port and back unchanged, and the
-    port steps it."""
+    committed relay — converts into the port and back unchanged, and both
+    packages step it one tick (a matcher tick, so the anchor stack runs) to
+    the same trace: discrete fields equal, poses within POSE_ATOL."""
     from nclt_slam_tpu_torch.rollout.repeat import repeat_step
 
-    teach, _, jr, _ = runs
-    jt_cfg, _, _, tr_cfg = configs()
+    teach, _, jr, _, jstep = runs
+    jt_cfg, _, jr_cfg, tr_cfg = configs()
     carry = batch1(jr.final)
     back = interop.to_numpy_tree(carry)
     for got, want in zip(jax.tree_util.tree_leaves(back),
                          jax.tree_util.tree_leaves(jr.final)):
         assert np.array_equal(got[0], np.asarray(want))
     assert bool(carry.fusion.committed[0]) and bool(carry.vio.map_valid.any())
+    assert REPEAT_TICKS % jr_cfg.landmarks.tick_period == 0
     packed, _, _ = pack_test_route(straight_route(), jt_cfg)
+    _, jtrace = jstep(jr.final, REPEAT_TICKS)
     _, trace = repeat_step(carry, REPEAT_TICKS,
                            batch1(tiny_scene(drop_on_path=True)),
                            batch1(packed), teach.teach_grid, teach.store,
                            tr_cfg)
-    assert torch.isfinite(trace.nav_xy).all()
+    for f in DISCRETE:
+        assert np.array_equal(getattr(trace, f)[0].numpy(),
+                              np.asarray(getattr(jtrace, f))), f
+    for f in ("gt_xy", "gt_yaw", "nav_xy", "vio_xy", "anchor_shift"):
+        np.testing.assert_allclose(getattr(trace, f)[0].numpy(),
+                                   np.asarray(getattr(jtrace, f)),
+                                   atol=POSE_ATOL, err_msg=f)
     assert int(trace.vio_tracked[0]) >= 8
+    assert int(trace.anchor_reason[0]) >= 0       # the matcher ran

@@ -272,7 +272,8 @@ def test_preintegration_matches_jax():
     gyr = rng.normal(0, 0.2, (B, S, 3)).astype(np.float32)
     jp = jax.vmap(lambda a, g: jpre.integrate_block(
         jpre.empty_preint(), a, g, 0.005))(acc, gyr)
-    tp = tpre.integrate_block(tpre.empty_preint(B), _t(acc), _t(gyr), 0.005)
+    tp = tpre.integrate_block(tpre.empty_preint(B, "cpu"), _t(acc), _t(gyr),
+                              0.005)
     for f in ("dq", "dv", "dp", "dt"):
         np.testing.assert_allclose(getattr(tp, f).numpy(),
                                    np.asarray(getattr(jp, f)), rtol=1e-6,

@@ -10,14 +10,15 @@ runners' default seeds:
 - ``torch_gt_campaign_fixture.npz``: ``--teach-ticks`` GT-localized teach
   ticks (``config.gt_localization()`` with ``teach.run_vio=False``), then
   ``--repeat-ticks`` GT repeat ticks;
-- ``torch_ours_campaign_fixture.npz``: ``--ours-teach-ticks`` teach ticks
+- ``torch_ours_campaign_fixture.npz``: ``OURS_TEACH_TICKS`` teach ticks
   with the live VIO (the ``gt_localization()`` default), waypoints from the
-  aligned VIO track, then ``--ours-repeat-ticks`` full-stack repeat ticks
+  aligned VIO track, then ``OURS_REPEAT_TICKS`` full-stack repeat ticks
   (``config.ours()``: VIO + anchors + v55 fusion).
 
 ``chip_smoke.py`` replays the same campaigns on the card and compares.
+The tool writes both files:
 
-    JAX_PLATFORMS=cpu python tools/make_torch_fixture.py [--only gt|ours]
+    JAX_PLATFORMS=cpu python tools/make_torch_fixture.py
 """
 
 from __future__ import annotations
@@ -39,6 +40,10 @@ ROUTES = ("02_north_forest", "13_cross_nws")
 # appearance death (LandmarkConfig.session_dead_frac), so that anchors
 # publish inside the window
 OURS_ROUTES = ("06_nw_ne", "09_se_ne")
+# long enough for the relay to commit, the robots to leave the startup hold
+# and anchors to publish inside the repeat window
+OURS_TEACH_TICKS = 150
+OURS_REPEAT_TICKS = 150
 
 
 def slice_config(cfg_mod):
@@ -107,11 +112,8 @@ def write_ours(cfg_mod, campaign, teach_ticks, repeat_ticks, out: Path):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--only", choices=("gt", "ours"))
     ap.add_argument("--teach-ticks", type=int, default=100)
     ap.add_argument("--repeat-ticks", type=int, default=100)
-    ap.add_argument("--ours-teach-ticks", type=int, default=150)
-    ap.add_argument("--ours-repeat-ticks", type=int, default=150)
     args = ap.parse_args(argv)
 
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
@@ -123,14 +125,11 @@ def main(argv=None):
     from nclt_slam_tpu.rollout import campaign
 
     DATA.mkdir(parents=True, exist_ok=True)
-    if args.only in (None, "gt"):
-        write_gt(cfg_mod, campaign, args.teach_ticks, args.repeat_ticks,
-                 GT_OUT)
-        print(f"wrote {GT_OUT} ({GT_OUT.stat().st_size} bytes)")
-    if args.only in (None, "ours"):
-        write_ours(cfg_mod, campaign, args.ours_teach_ticks,
-                   args.ours_repeat_ticks, OURS_OUT)
-        print(f"wrote {OURS_OUT} ({OURS_OUT.stat().st_size} bytes)")
+    write_gt(cfg_mod, campaign, args.teach_ticks, args.repeat_ticks, GT_OUT)
+    print(f"wrote {GT_OUT} ({GT_OUT.stat().st_size} bytes)")
+    write_ours(cfg_mod, campaign, OURS_TEACH_TICKS, OURS_REPEAT_TICKS,
+               OURS_OUT)
+    print(f"wrote {OURS_OUT} ({OURS_OUT.stat().st_size} bytes)")
 
 
 if __name__ == "__main__":
