@@ -7,8 +7,8 @@ Phases, each of which must pass (any failure exits non-zero):
 
 1. print the card (``nvidia-smi`` name and power limit), torch/CUDA versions
    and the TF32 switches;
-2. build the hand-written kernels from ``nclt_slam_tpu_torch/csrc`` with
-   nvcc, one compiler process per source, all started together;
+2. build the three hand-written kernels from ``nclt_slam_tpu_torch/csrc``
+   with nvcc, one compiler process per source, all started together;
 3. hold the wavefront kernel (K2) against its plain PyTorch version, bit for
    bit (``torch.equal``), at the planner's two shapes — (15, 192, 192)
    windows and the (15, 119, 232) coarse map, 384 iterations, random lethal
@@ -19,23 +19,44 @@ Phases, each of which must pass (any failure exits non-zero):
    the matcher's grouped form (75 stored-feature sets, five per route,
    against their route's 15 live frames) — with ~20 % invalid rows, shared
    rows (ties) and one all-invalid problem, and time both;
-5. replay the JAX reference fixture of the GT-localized campaign
+5. hold the bundle-adjustment kernel (K3) against its plain version on
+   consistent windows (observations are projections of true points, so both
+   solvers reach one optimum) by tolerance, at four shapes up to the
+   rollout's 15 windows x 16 keyframes x 192 landmarks x 3 iterations; both
+   must reach the generator's truth; time it at the rollout's shape and, on
+   the batch benchmark's random windows, at 64 x 16 x 192 x 8 iterations
+   and the benchmark's sweep shapes;
+6. replay the JAX reference fixture of the GT-localized campaign
    (``tests/data/torch_gt_campaign_fixture.npz``: 2 routes at full width,
    100 teach + 100 repeat ticks) and compare within the tolerances below;
-6. replay the JAX reference fixture of the ours campaign
+7. replay the JAX reference fixture of the ours campaign
    (``tests/data/torch_ours_campaign_fixture.npz``: 2 routes at full width,
    150 VIO-teach + 150 full-stack repeat ticks) and compare;
-7. drive the GT-localized main path through the campaign API: 15 routes at
+8. replay the JAX reference fixture of the ``rgbd_ba`` repeat
+   (``tests/data/torch_rgbd_ba_campaign_fixture.npz``: 150 ticks off the
+   same teach, VIO without the inertial term, the GT-stall watchdog, local
+   BA every tenth tick) and compare, the refined keyframe ring and VIO map
+   included;
+9. drive the GT-localized main path through the campaign API: 15 routes at
    full width, a GT teach, teach waypoints, a GT repeat with
    ``stop_when_done=False``; check that K2 was launched on it;
-8. drive the ours main path through the campaign API: the 15-route
+10. drive the ours main path through the campaign API: the 15-route
    campaign at full width, a VIO teach (``config.gt_localization()``), the
    aligned-VIO teach waypoints and a full-stack repeat (``config.ours()``:
    VIO + anchors + v55 fusion) with ``stop_when_done=False``; check that K1
    was launched at both call sites (VIO frame, anchor matcher) and K2 too,
    every trace is finite, every relay committed, an anchor was published
-   and the robots moved; profile a short window for the launches per tick
-   and the device's busy share.
+   and the robots moved;
+11. drive the bundle-adjustment main path off the same teach, waypoints and
+    landmark stores: a 15-route ``baselines.configs.rgbd_ba()`` repeat at
+    full width; check that K3 was launched once every tenth tick from
+    ``local_ba``, that K1 and K2 were launched, that at least one solve
+    passed its gate and moved a keyframe or a map point, every trace is
+    finite, every relay committed and the robots moved; then a shorter
+    ``rgbd_no_imu()`` repeat (no BA) for the same mode without it;
+12. profile a short window of the ours repeat for the launches per tick and
+    the device's busy share (last, because the profiler slows every launch
+    that follows it in the process).
 
 Each main path runs with the kernels' launch counts set to 0 just before
 it and read just after.  The last three lines are a JSON line of
@@ -46,6 +67,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -57,17 +79,40 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 FIXTURE = REPO / "tests" / "data" / "torch_gt_campaign_fixture.npz"
 OURS_FIXTURE = REPO / "tests" / "data" / "torch_ours_campaign_fixture.npz"
+RGBD_BA_FIXTURE = REPO / "tests" / "data" / \
+    "torch_rgbd_ba_campaign_fixture.npz"
 
 TEACH_TICKS = 500
 REPEAT_TICKS = 300
 OURS_TEACH_TICKS = 500
 OURS_REPEAT_TICKS = 300
+RGBD_BA_REPEAT_TICKS = 300
+RGBD_REPEAT_TICKS = 100
+BA_PERIOD = 10                        # local BA runs at tick % 10 == 3
 PROFILE_TICKS = 10
 KERNEL_SHAPES = ((15, 192, 192), (15, 119, 232))
 KERNEL_ITERS = 384
 # K1 problems: (a-sets, A rows, b-sets, B rows), 8 words (256 bits) a row
 HAMMING_SHAPES = ((15, 256, 15, 384), (75, 256, 75, 256), (75, 256, 15, 256))
 DESC_WORDS = 8
+# K3 against its plain version on consistent windows: (windows, keyframes,
+# landmarks, iterations, point prior weight or None, w_rel); the last is
+# the rollout's call (one window a route, scalar w_rel, point prior)
+BA_SHAPES = ((3, 6, 64, 10, None, 100.0), (1, 6, 40, 6, 50.0, 100.0),
+             (2, 10, 48, 6, None, 100.0), (15, 16, 192, 3, 50.0, 10.0))
+BA_ROLLOUT = BA_SHAPES[-1]
+BA_BENCH = (64, 16, 192, 8)           # the batch benchmark's call
+BA_SWEEP = ((64, 10, 48, 8), (64, 10, 128, 8), (32, 16, 256, 8),
+            (8, 24, 512, 8))
+# K3 and its plain version differ in the reduced solve (Gauss-Jordan against
+# Cholesky) and in summation order: they agree by tolerance on consistent
+# windows (the JAX package's tests/test_ba_pallas.py), not bit for bit
+BA_POS_ATOL_M = 2e-4
+BA_QUAT_ATOL = 2e-5
+BA_PTS_ATOL_M = 1e-3
+BA_COST_RTOL = 1e-3
+BA_TRUTH_POS_M = 0.05                 # convergence to the generator's truth
+BA_TRUTH_PTS_MEAN_M = 0.1
 
 # the card's published peaks (NVIDIA's H100 SXM data sheet, 700 W)
 PEAK_BYTES_PER_S = 3.35e12
@@ -86,6 +131,16 @@ FIX_OCC_MISMATCH_FRAC = 0.01
 FIX_VIO_ATOL_M = 1e-3
 FIX_NAV_ATOL_M = 1e-2
 DIVERGE_M = 1e-4   # "divergence starts" at the first tick beyond this
+# the rgbd_ba replay holds the traces up to this tick and the refined ring
+# and map at the end of the window
+RGBD_FIX_TICKS = 150
+FIX_BA_KF_ATOL_M = 1e-2
+# a map point seen from two nearby keyframes is loose along its ray, and
+# there the kernel's Gauss-Jordan and the reference's Cholesky round apart:
+# the bulk of the map is held tightly, the worst point loosely
+FIX_BA_MAP_BULK_ATOL_M = 1e-3
+FIX_BA_MAP_BULK_FRAC = 0.95
+FIX_BA_MAP_MAX_ATOL_M = 0.1
 OURS_DISCRETE = ("regime", "anchor_ok", "anchor_reason", "vio_tracked",
                  "wp_idx", "done")
 
@@ -137,29 +192,36 @@ def time_cuda(fn, reps):
 
 
 def reset_counts():
+    from nclt_slam_tpu_torch.ops import ba as ops_ba
     from nclt_slam_tpu_torch.ops import hamming as hm
     from nclt_slam_tpu_torch.ops import wavefront as wf
     wf.wavefront_relax.launches = 0
     hm.reset_launches()
+    ops_ba.reset_launches()
 
 
 def read_counts():
+    from nclt_slam_tpu_torch.ops import ba as ops_ba
     from nclt_slam_tpu_torch.ops import hamming as hm
     from nclt_slam_tpu_torch.ops import wavefront as wf
     return dict(k2=wf.wavefront_relax.launches, k1=hm.cross_check.launches,
-                k1_sites=dict(hm.cross_check.site_launches))
+                k1_sites=dict(hm.cross_check.site_launches),
+                k3=ops_ba.solve_ba_cuda.launches,
+                k3_sites=dict(ops_ba.solve_ba_cuda.site_launches))
 
 
 def build_phase():
     """Build every kernel, one nvcc per source, all at once."""
+    from nclt_slam_tpu_torch.ops import ba as ops_ba
     from nclt_slam_tpu_torch.ops import hamming as hm
     from nclt_slam_tpu_torch.ops import wavefront as wf
 
+    mods = (wf, hm, ops_ba)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as ex:
-        libs = list(ex.map(lambda m: m.build_library(), (wf, hm)))
-    wf._load()
-    hm._load()
+    with ThreadPoolExecutor(len(mods)) as ex:
+        libs = list(ex.map(lambda m: m.build_library(), mods))
+    for m in mods:
+        m._load()
     print(f"kernels built in {time.perf_counter() - t0:.2f} s: "
           + ", ".join(str(lib.relative_to(REPO)) for lib in libs), flush=True)
 
@@ -246,6 +308,100 @@ def hamming_phase(dev):
               f"({int(ref[1].sum())} matched), kernel {ms:.4f} ms, plain "
               f"{plain_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by})", flush=True)
     return rows
+
+
+def ba_bound(B, K, P, iters):
+    """(ms, what bounds it) for one solve: every input read once (poses,
+    landmarks, observations, relative factors with their weights, point
+    prior), every output written once, and the analytic operation count of
+    ``ba_flops_per_iter``."""
+    from nclt_slam_tpu_torch.vio.ba_problems import ba_flops_per_iter
+    n_in = B * (K * 7 + P * 3 + K * P * 4 + (K - 1) * 8 + P)
+    n_out = B * (K * 7 + P * 3 + 1)
+    return bound_ms(4 * (n_in + n_out), ba_flops_per_iter(K, P) * iters * B)
+
+
+def ba_phase(dev):
+    """K3 against its plain version on consistent windows, then its times
+    at the rollout's and the batch benchmark's shapes."""
+    import numpy as np
+    import torch
+    from nclt_slam_tpu_torch import config
+    from nclt_slam_tpu_torch.vio import ba
+    from nclt_slam_tpu_torch.vio.ba_problems import bench_windows, consistent_windows
+
+    cam, vcfg = config.DEFAULT.camera, config.DEFAULT.vio
+    rows = []
+    for shape in BA_SHAPES:
+        B, K, P, iters, prior, w_rel = shape
+        prob, (gt_pos, gt_pts) = consistent_windows(
+            range(B), dev, K=K, P=P, w_rel=w_rel, prior=prior)
+        out = ba.solve_ba(prob, cam, vcfg, iters=iters, site="check")
+        ref = ba.solve_ba_plain(prob, cam, vcfg, iters=iters)
+        torch.cuda.synchronize()
+        err = {f: (getattr(out, f) - getattr(ref, f)).abs().max().item()
+               for f in ("kf_pos", "kf_quat", "points")}
+        cost_rel = ((out.final_cost - ref.final_cost).abs()
+                    / ref.final_cost.abs()).max().item()
+        check(all(torch.isfinite(x).all().item() for x in out),
+              f"K3 at {shape}: non-finite output")
+        check(err["kf_pos"] <= BA_POS_ATOL_M
+              and err["kf_quat"] <= BA_QUAT_ATOL
+              and err["points"] <= BA_PTS_ATOL_M
+              and cost_rel <= BA_COST_RTOL,
+              f"K3 differs from its plain version at {shape}: {err}, cost "
+              f"{cost_rel} relative")
+        truth = {}
+        for name, res in (("kernel", out), ("plain", ref)):
+            pe = np.linalg.norm(res.kf_pos.cpu().numpy() - gt_pos,
+                                axis=-1).max()
+            le = np.linalg.norm(res.points.cpu().numpy() - gt_pts,
+                                axis=-1).mean()
+            truth[name] = (float(pe), float(le))
+            # free points and a full-length solve reach the truth; a prior
+            # holds the points at their noisy input
+            if prior is None and iters >= 10:
+                check(pe < BA_TRUTH_POS_M and le < BA_TRUTH_PTS_MEAN_M,
+                      f"{name} BA at {shape} did not converge to the truth: "
+                      f"poses {pe} m, points {le} m mean")
+        rows.append(dict(shape=list(shape[:4]), max_abs_err=max(err.values()),
+                         cost_rel_err=cost_rel, **err))
+        print(f"K3 {B}x{K}x{P} x{iters}: within tolerance of plain (pos "
+              f"{err['kf_pos']:.2e} m, quat {err['kf_quat']:.2e}, points "
+              f"{err['points']:.2e} m, cost {cost_rel:.2e} rel); to truth "
+              f"(max pose m, mean point m): kernel {truth['kernel']}, plain "
+              f"{truth['plain']}", flush=True)
+
+    def timed(name, prob, B, K, P, iters, reps):
+        out = ba.solve_ba(prob, cam, vcfg, iters=iters, site="check")
+        first = ba.solve_ba(prob, cam, vcfg, iters=1, site="check")
+        torch.cuda.synchronize()
+        check(all(torch.isfinite(x).all().item() for x in out),
+              f"K3 {name}: non-finite output")
+        check((out.final_cost <= first.final_cost).all().item(),
+              f"K3 {name}: the cost rose over {iters} iterations")
+        ms = time_cuda(lambda: ba.solve_ba(prob, cam, vcfg, iters=iters,
+                                           site="check"), reps)
+        plain_ms = time_cuda(lambda: ba.solve_ba_plain(prob, cam, vcfg,
+                                                       iters=iters), 3)
+        b_ms, b_by = ba_bound(B, K, P, iters)
+        row = dict(shape=[B, K, P, iters], ms=ms, plain_ms=plain_ms,
+                   bound_ms=b_ms, bound_by=b_by, solves_per_s=B / ms * 1e3)
+        print(f"K3 {name} {B}x{K}x{P} x{iters}: kernel {ms:.3f} ms "
+              f"({row['solves_per_s']:.0f} solves/s), plain {plain_ms:.2f} "
+              f"ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+        return row
+
+    B, K, P, iters, prior, w_rel = BA_ROLLOUT
+    prob, _ = consistent_windows(range(B), dev, K=K, P=P, w_rel=w_rel,
+                                 prior=prior)
+    rollout = timed("rollout", prob, B, K, P, iters, 50)
+    rollout["max_abs_err"] = rows[-1]["max_abs_err"]
+    B, K, P, iters = BA_BENCH
+    bench = timed("bench", bench_windows(B, K, P, dev), B, K, P, iters, 20)
+    sweep = [timed("sweep", bench_windows(B, K, P, dev), B, K, P, iters, 10)
+             for B, K, P, iters in BA_SWEEP]
+    return dict(checks=rows, rollout=rollout, bench=bench, sweep=sweep)
 
 
 def divergence(a, b):
@@ -392,6 +548,122 @@ def ours_fixture_phase(dev):
         check(report[f"{f}_first_diff"] is None,
               f"ours repeat {f} sequence differs from the fixture from tick "
               f"{report[f'{f}_first_diff']}")
+    return data, teach, wps, n_wps
+
+
+@contextlib.contextmanager
+def watch_local_ba(n_routes, dev):
+    """Count what the rollout's ``local_ba`` calls did while the block runs:
+    per route, the solves that passed the ``enough`` gate (the keyframe ring
+    moved) and the map points they wrote back.  Kept on the card: nothing
+    synchronizes inside the run."""
+    import torch
+    from nclt_slam_tpu_torch.rollout import repeat as repeat_mod
+
+    tally = dict(calls=0,
+                 accepted=torch.zeros(n_routes, dtype=torch.long, device=dev),
+                 points=torch.zeros(n_routes, dtype=torch.long, device=dev))
+    inner = repeat_mod.local_ba
+
+    def watched(state, cam, cfg):
+        new = inner(state, cam, cfg)
+        tally["calls"] += 1
+        tally["accepted"] += (new.kf_pos != state.kf_pos).flatten(1).any(1)
+        tally["points"] += (new.map_xyz != state.map_xyz).any(-1).sum(1)
+        return new
+
+    repeat_mod.local_ba = watched
+    try:
+        yield tally
+    finally:
+        repeat_mod.local_ba = inner
+
+
+def rgbd_ba_fixture_phase(shared, dev):
+    """Replay the JAX reference ``rgbd_ba`` repeat (2 routes) off the ours
+    fixture's teach and compare."""
+    import numpy as np
+    from nclt_slam_tpu_torch.baselines import configs as baselines
+    from nclt_slam_tpu_torch.rollout import campaign
+
+    fx = np.load(RGBD_BA_FIXTURE)
+    data, teach, wps, n_wps = shared
+    check([str(n) for n in fx["routes"]] == list(data.names),
+          "the rgbd_ba fixture's routes are not the ours fixture's")
+    n_rep = fx["repeat_gt_xy"].shape[1]
+    n = min(RGBD_FIX_TICKS, n_rep)
+    cfg = baselines.rgbd_ba()
+    before = read_counts()["k3_sites"].get("local_ba", 0)
+    with watch_local_ba(len(data.names), dev) as tally:
+        rep = campaign.run_campaign_repeat(
+            data, teach.teach_grid, wps, n_wps, cfg, n_rep,
+            stores=teach.store, stop_when_done=False)
+    k3 = read_counts()["k3_sites"].get("local_ba", 0) - before
+    r, vio = rep.trace, rep.final.vio
+    r_err, r_start = divergence(r.gt_xy[:, :n], fx["repeat_gt_xy"][:, :n])
+    n_err, n_start = divergence(r.nav_xy[:, :n], fx["repeat_nav_xy"][:, :n])
+    v_err, v_start = divergence(r.vio_xy[:, :n], fx["repeat_vio_xy"][:, :n])
+    kf_valid = vio.kf_valid.cpu().numpy()
+    ring_equal = bool(np.array_equal(kf_valid, fx["final_kf_valid"])
+                      and np.array_equal(vio.kf_ptr.cpu().numpy(),
+                                         fx["final_kf_ptr"])
+                      and np.array_equal(vio.map_valid.cpu().numpy(),
+                                         fx["final_map_valid"]))
+    kf_err = map_err = map_bulk = None
+    if ring_equal:
+        kf_err = float(np.abs(vio.kf_pos.cpu().numpy()
+                              - fx["final_kf_pos"])[kf_valid].max())
+        d_map = np.abs(vio.map_xyz.cpu().numpy()
+                       - fx["final_map_xyz"])[fx["final_map_valid"]].max(-1)
+        map_err = float(d_map.max())
+        map_bulk = float((d_map <= FIX_BA_MAP_BULK_ATOL_M).mean())
+    report = dict(
+        routes=list(data.names), repeat_ticks=n_rep, held_ticks=n,
+        repeat_gt_xy_max_err_m=r_err, repeat_divergence_from_tick=r_start,
+        repeat_nav_xy_max_err_m=n_err, repeat_nav_divergence_from_tick=n_start,
+        repeat_vio_xy_max_err_m=v_err, repeat_vio_divergence_from_tick=v_start,
+        committed=rep.final.fusion.committed.cpu().tolist(),
+        committed_ref=fx["repeat_committed"].tolist(),
+        anchors_published=int(r.anchor_ok.sum()),
+        anchors_published_ref=int(fx["repeat_anchor_ok"].sum()),
+        k3_launches=k3, local_ba_calls=tally["calls"],
+        local_ba_accepted=tally["accepted"].cpu().tolist(),
+        local_ba_points_written=tally["points"].cpu().tolist(),
+        ref_ba_ticks_with_3_keyframes=(fx["kf_before_ba"] >= 3).sum(1).tolist(),
+        keyframes=kf_valid.sum(1).tolist(),
+        ring_and_map_masks_equal=ring_equal,
+        final_kf_pos_max_err_m=kf_err, final_map_xyz_max_err_m=map_err,
+        final_map_frac_within_bulk_atol=map_bulk)
+    for f in OURS_DISCRETE:
+        report[f"{f}_first_diff"] = first_diff(getattr(r, f),
+                                               fx[f"repeat_{f}"])
+    print("rgbd_ba_fixture " + json.dumps(report), flush=True)
+    check(k3 == tally["calls"] == n_rep // BA_PERIOD,
+          f"the rgbd_ba replay launched K3 {k3} times in {tally['calls']} "
+          f"local_ba calls over {n_rep} ticks")
+    check(max(report["local_ba_accepted"]) >= 5,
+          f"fewer than five accepted local-BA solves on every route: "
+          f"{report['local_ba_accepted']}")
+    check(r_err <= FIX_REPEAT_ATOL_M, f"rgbd_ba repeat diverged from the "
+          f"JAX fixture ({r_err} m)")
+    check(n_err <= FIX_NAV_ATOL_M, f"rgbd_ba nav pose diverged from the JAX "
+          f"fixture ({n_err} m > {FIX_NAV_ATOL_M} m)")
+    check(v_err <= FIX_NAV_ATOL_M, f"rgbd_ba VIO track diverged from the "
+          f"JAX fixture ({v_err} m > {FIX_NAV_ATOL_M} m)")
+    check(report["committed"] == report["committed_ref"],
+          "rgbd_ba relay commit differs from the fixture")
+    for f in OURS_DISCRETE:
+        d = report[f"{f}_first_diff"]
+        check(d is None or d >= n, f"rgbd_ba repeat {f} sequence differs "
+              f"from the fixture from tick {d}")
+    if n == n_rep:
+        check(ring_equal, "rgbd_ba keyframe ring or map masks differ from "
+              "the fixture")
+        check(kf_err <= FIX_BA_KF_ATOL_M and map_err <= FIX_BA_MAP_MAX_ATOL_M
+              and map_bulk >= FIX_BA_MAP_BULK_FRAC,
+              f"the refined ring / map differ from the fixture: keyframes "
+              f"{kf_err} m, map points {map_err} m at worst, {map_bulk} of "
+              f"them within {FIX_BA_MAP_BULK_ATOL_M} m")
     return report
 
 
@@ -502,7 +774,6 @@ def ours_main_path_phase(dev):
     from nclt_slam_tpu_torch import config
     from nclt_slam_tpu_torch.landmarks import matcher
     from nclt_slam_tpu_torch.rollout import campaign
-    from nclt_slam_tpu_torch.rollout.repeat import run_repeat
 
     teach_cfg, cfg = config.gt_localization(), config.ours()
     data = campaign.build_campaign(cfg=teach_cfg, device=dev)
@@ -555,12 +826,6 @@ def ours_main_path_phase(dev):
     # the startup hold releases the robot once its relay has committed
     first_drive = [int(np.argmax(row != 0)) for row in r.cmd_v]
 
-    # a short profiled window continuing the repeat
-    launches, busy_s, wall = profile_window(lambda: run_repeat(
-        data.scenes_repeat, data.routes, teach.teach_grid, wps, n_wps, cfg,
-        PROFILE_TICKS, store=teach.store, carry=rep.final,
-        tick0=executed(OURS_REPEAT_TICKS)))
-
     rep_exec, teach_exec = executed(OURS_REPEAT_TICKS), \
         executed(OURS_TEACH_TICKS)
     substeps = cfg.sim.nav_decimation
@@ -578,10 +843,6 @@ def ours_main_path_phase(dev):
         # matcher once every fifth repeat tick
         k1_launches_per_repeat_tick=(sites.get("vio", 0) - teach_exec
                                      + sites.get("matcher", 0)) / rep_exec,
-        profiled_ticks=PROFILE_TICKS,
-        profiled_ms_per_tick=wall / PROFILE_TICKS * 1e3,
-        launches_per_tick=launches / PROFILE_TICKS,
-        device_busy_share=busy_s / wall,
         anchors_published_per_route=n_pub.tolist(),
         anchor_reasons=reason_counts,
         first_drive_tick=first_drive,
@@ -592,6 +853,115 @@ def ours_main_path_phase(dev):
         landmarks=teach.store.count.cpu().tolist())
     print("ours_campaign_metrics " + json.dumps(agg), flush=True)
     print("ours_main_path " + json.dumps(stats), flush=True)
+    return stats, (data, teach, wps, n_wps), rep.final
+
+
+def ours_profile_phase(shared, carry):
+    """A short profiled window continuing the ours repeat: launches per
+    tick and the device's busy share.  It runs after every timed phase: once
+    the profiler has attached to the CUDA driver, launches stay slower for
+    the rest of the process."""
+    from nclt_slam_tpu_torch import config
+    from nclt_slam_tpu_torch.rollout.repeat import run_repeat
+
+    data, teach, wps, n_wps = shared
+    launches, busy_s, wall = profile_window(lambda: run_repeat(
+        data.scenes_repeat, data.routes, teach.teach_grid, wps, n_wps,
+        config.ours(), PROFILE_TICKS, store=teach.store, carry=carry,
+        tick0=executed(OURS_REPEAT_TICKS)))
+    stats = dict(profiled_ticks=PROFILE_TICKS,
+                 profiled_ms_per_tick=wall / PROFILE_TICKS * 1e3,
+                 launches_per_tick=launches / PROFILE_TICKS,
+                 device_busy_share=busy_s / wall)
+    print("ours_profile " + json.dumps(stats), flush=True)
+    return stats
+
+
+def rgbd_ba_main_path_phase(shared, dev):
+    """The 15-route ``rgbd_ba`` repeat (VIO without the inertial term,
+    anchors, GT-stall watchdog, local BA every tenth tick) off the ours
+    path's teach, then the same mode without the BA."""
+    import numpy as np
+    import torch
+    from nclt_slam_tpu_torch.baselines import configs as baselines
+    from nclt_slam_tpu_torch.rollout import campaign
+
+    data, teach, wps, n_wps = shared
+    n_routes = len(data.names)
+    cfg = baselines.rgbd_ba()
+    substeps = cfg.sim.nav_decimation
+    torch.cuda.synchronize()
+
+    reset_counts()
+    with watch_local_ba(n_routes, dev) as tally:
+        t0 = time.perf_counter()
+        rep = campaign.run_campaign_repeat(
+            data, teach.teach_grid, wps, n_wps, cfg, RGBD_BA_REPEAT_TICKS,
+            stores=teach.store, stop_when_done=False)
+        torch.cuda.synchronize()
+        repeat_s = time.perf_counter() - t0
+    counts = read_counts()
+
+    rep_exec = executed(RGBD_BA_REPEAT_TICKS)
+    k3_local = counts["k3_sites"].get("local_ba", 0)
+    check(k3_local == rep_exec // BA_PERIOD and counts["k3"] == k3_local,
+          f"the rgbd_ba path launched K3 {counts['k3_sites']} times in "
+          f"{rep_exec} ticks, expected {rep_exec // BA_PERIOD} from local_ba")
+    check(counts["k1_sites"].get("vio", 0) > 0
+          and counts["k1_sites"].get("matcher", 0) > 0,
+          f"the rgbd_ba path did not launch K1 at both sites: "
+          f"{counts['k1_sites']}")
+    check(counts["k2"] > 0, "the rgbd_ba path launched K2 no time")
+    accepted = tally["accepted"].cpu().numpy()
+    points = tally["points"].cpu().numpy()
+    check(accepted.sum() > 0 and points.sum() > 0,
+          f"no local-BA solve passed its gate: accepted {accepted.tolist()}, "
+          f"points written {points.tolist()}")
+    r = rep.trace
+    traces_finite((("rgbd_ba gt_xy", r.gt_xy), ("rgbd_ba nav_xy", r.nav_xy),
+                   ("rgbd_ba vio_xy", r.vio_xy), ("rgbd_ba cmd_v", r.cmd_v)))
+    committed = rep.final.fusion.committed.cpu().numpy()
+    check(committed.all(), f"rgbd_ba relays not committed: "
+          f"{committed.tolist()}")
+    rep_path = np.hypot(*np.diff(r.gt_xy, axis=1).T).sum(0)
+    check((rep_path > 2.0).sum() >= n_routes - 2,
+          f"rgbd_ba robots did not move: {rep_path.round(2).tolist()}")
+    drift = np.hypot(*(r.nav_xy - r.gt_xy).transpose(2, 0, 1))
+
+    # the same mode without the BA: the watchdog and use_imu=False paths
+    plain_cfg = baselines.rgbd_no_imu()
+    t0 = time.perf_counter()
+    plain = campaign.run_campaign_repeat(
+        data, teach.teach_grid, wps, n_wps, plain_cfg, RGBD_REPEAT_TICKS,
+        stores=teach.store, stop_when_done=False)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    plain_exec = executed(RGBD_REPEAT_TICKS)
+    check(read_counts()["k3"] == counts["k3"],
+          "the rgbd repeat without local BA launched K3")
+    traces_finite((("rgbd gt_xy", plain.trace.gt_xy),
+                   ("rgbd nav_xy", plain.trace.nav_xy)))
+    check(plain.final.fusion.committed.all().item(),
+          "rgbd relays not committed")
+
+    stats = dict(
+        routes=n_routes, repeat_ticks=rep_exec, repeat_s=repeat_s,
+        env_steps_per_s=rep_exec * substeps * n_routes / repeat_s,
+        repeat_ms_per_tick=repeat_s / rep_exec * 1e3,
+        launches=counts,
+        local_ba_calls=tally["calls"],
+        local_ba_accepted_per_route=accepted.tolist(),
+        local_ba_points_written_per_route=points.tolist(),
+        keyframes_per_route=rep.final.vio.kf_valid.sum(1).cpu().tolist(),
+        anchors_published_per_route=r.anchor_ok.sum(1).tolist(),
+        stalled_routes=int(r.done[:, -1].sum()),
+        nav_err_m_mean=float(drift.mean()), nav_err_m_max=float(drift.max()),
+        repeat_path_m_mean=float(rep_path.mean()),
+        wp_idx=rep.final.dispatch.idx.cpu().tolist(),
+        rgbd_repeat_ticks=plain_exec, rgbd_repeat_s=plain_s,
+        rgbd_env_steps_per_s=plain_exec * substeps * n_routes / plain_s,
+        rgbd_repeat_ms_per_tick=plain_s / plain_exec * 1e3)
+    print("rgbd_ba_main_path " + json.dumps(stats), flush=True)
     return stats
 
 
@@ -603,8 +973,8 @@ def run() -> int:
               file=sys.stderr)
         return 2
     csrc = REPO / "nclt_slam_tpu_torch" / "csrc"
-    if not ((csrc / "wavefront.cu").is_file()
-            and (csrc / "hamming.cu").is_file()):
+    if not all((csrc / f).is_file() for f in
+               ("wavefront.cu", "hamming.cu", "ba.cu", "gauss_jordan.cuh")):
         print(f"chip_smoke: no nclt_slam_tpu_torch checkout beside {__file__}",
               file=sys.stderr)
         return 2
@@ -625,21 +995,26 @@ def run() -> int:
     build_phase()
     k2_rows = kernel_phase(dev)
     k1_rows = hamming_phase(dev)
+    k3 = ba_phase(dev)
     fixture_phase(dev)
-    ours_fixture_phase(dev)
+    rgbd_ba_fixture_phase(ours_fixture_phase(dev), dev)
     gt = main_path_phase(dev)
-    ours = ours_main_path_phase(dev)
+    ours, shared, ours_carry = ours_main_path_phase(dev)
+    rgbd_ba = rgbd_ba_main_path_phase(shared, dev)
+    ours_profile_phase(shared, ours_carry)
 
     window, coarse = k2_rows
     vio_row, _, matcher_row = k1_rows
-    k2_launches = gt["launches"]["k2"] + ours["launches"]["k2"]
+    k1_launches = ours["launches"]["k1"] + rgbd_ba["launches"]["k1"]
+    k2_launches = gt["launches"]["k2"] + ours["launches"]["k2"] + \
+        rgbd_ba["launches"]["k2"]
     kernels = {"kernels": [
         {
             "name": "hamming_cross_check",
             "route": "cuda",
             "source": "nclt_slam_tpu_torch/csrc/hamming.cu",
             "replaces": "nclt_slam_tpu/ops/hamming_pallas.py:62",
-            "launches": ours["launches"]["k1"],
+            "launches": k1_launches,
             "max_abs_err": max(row["max_abs_err"] for row in k1_rows),
             "ms": vio_row["ms"],
             "plain_ms": vio_row["plain_ms"],
@@ -647,7 +1022,8 @@ def run() -> int:
             "bound_by": vio_row["bound_by"],
             "library_ms": None,
             "shape": vio_row["shape"],
-            "launches_by_site": ours["launches"]["k1_sites"],
+            "launches_by_path": {"ours": ours["launches"]["k1_sites"],
+                                 "rgbd_ba": rgbd_ba["launches"]["k1_sites"]},
             "matcher_shape": matcher_row["shape"],
             "matcher_ms": matcher_row["ms"],
             "matcher_plain_ms": matcher_row["plain_ms"],
@@ -667,11 +1043,33 @@ def run() -> int:
             "library_ms": None,
             "shape": window["shape"],
             "launches_by_path": {"gt": gt["launches"]["k2"],
-                                 "ours": ours["launches"]["k2"]},
+                                 "ours": ours["launches"]["k2"],
+                                 "rgbd_ba": rgbd_ba["launches"]["k2"]},
             "coarse_shape": coarse["shape"],
             "coarse_ms": coarse["ms"],
             "coarse_plain_ms": coarse["plain_ms"],
             "coarse_bound_ms": coarse["bound_ms"],
+        },
+        {
+            "name": "solve_ba",
+            "route": "cuda",
+            "source": "nclt_slam_tpu_torch/csrc/ba.cu",
+            "replaces": "nclt_slam_tpu/ops/ba_pallas.py:199",
+            "launches": rgbd_ba["launches"]["k3"],
+            "max_abs_err": max(row["max_abs_err"] for row in k3["checks"]),
+            "ms": k3["rollout"]["ms"],
+            "plain_ms": k3["rollout"]["plain_ms"],
+            "bound_ms": k3["rollout"]["bound_ms"],
+            "bound_by": k3["rollout"]["bound_by"],
+            "library_ms": None,
+            "shape": k3["rollout"]["shape"],
+            "launches_by_site": rgbd_ba["launches"]["k3_sites"],
+            "bench_shape": k3["bench"]["shape"],
+            "bench_ms": k3["bench"]["ms"],
+            "bench_plain_ms": k3["bench"]["plain_ms"],
+            "bench_bound_ms": k3["bench"]["bound_ms"],
+            "bench_solves_per_s": k3["bench"]["solves_per_s"],
+            "sweep": k3["sweep"],
         }]}
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)

@@ -31,7 +31,7 @@ class CtrlState(NamedTuple):
     wedge_activations: torch.Tensor
 
 
-def init_ctrl(batch: int, device=None) -> CtrlState:
+def init_ctrl(batch: int, device) -> CtrlState:
     z = torch.zeros(batch, dtype=torch.float32, device=device)
     zi = torch.zeros(batch, dtype=torch.int32, device=device)
     return CtrlState(

@@ -19,7 +19,7 @@ class SupervisorState(NamedTuple):
     fired: torch.Tensor      # (B,) bool
 
 
-def init_supervisor(batch: int, device=None) -> SupervisorState:
+def init_supervisor(batch: int, device) -> SupervisorState:
     f = torch.zeros(batch, dtype=torch.bool, device=device)
     return SupervisorState(been_far=f, fired=f.clone())
 

@@ -47,7 +47,7 @@ def threefry2x32(k1, k2, x1, x2):
     return x1, x2
 
 
-def PRNGKey(seed: int, device=None) -> torch.Tensor:
+def PRNGKey(seed: int, device) -> torch.Tensor:
     """``jax.random.PRNGKey(seed)`` for a 32-bit seed: the pair (0, seed)."""
     return torch.tensor([0, int(seed) & MASK32], dtype=torch.int64,
                         device=device)

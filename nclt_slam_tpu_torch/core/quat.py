@@ -47,6 +47,14 @@ def _cross(a, b):
                         a0 * b1 - a1 * b0], -1)
 
 
+def skew(y):
+    """[y]x for vectors (..., 3) -> (..., 3, 3)."""
+    y0, y1, y2 = y.unbind(-1)
+    z = torch.zeros_like(y0)
+    return torch.stack([z, -y2, y1, y2, z, -y0, -y1, y0, z],
+                       -1).reshape(y.shape + (3,))
+
+
 def quat_rotate(q, v):
     """Rotate vector(s) v (..., 3) by quaternion(s) q (..., 4)."""
     qv = q[..., :3]

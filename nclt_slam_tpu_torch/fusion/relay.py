@@ -64,7 +64,7 @@ class FusionState(NamedTuple):
     compass_bias: torch.Tensor    # (B,)
 
 
-def init_fusion(cfg: FusionConfig, batch: int, device=None) -> FusionState:
+def init_fusion(cfg: FusionConfig, batch: int, device) -> FusionState:
     B = batch
     z = dict(device=device)
     f = torch.zeros(B, **z)

@@ -31,7 +31,7 @@ def _registry() -> dict:
     from nclt_slam_tpu_torch.planning import dispatcher, wavefront
     from nclt_slam_tpu_torch.rollout import campaign, repeat, scene_pack, teach
     from nclt_slam_tpu_torch.sensors import features, imu
-    from nclt_slam_tpu_torch.vio import drift_monitor, preintegration, tracker
+    from nclt_slam_tpu_torch.vio import ba, drift_monitor, preintegration, tracker
 
     types = [
         pure_pursuit.CtrlState, supervisor.SupervisorState,
@@ -43,7 +43,7 @@ def _registry() -> dict:
         features.Observation, features.SceneFeatures, imu.ImuState,
         drift_monitor.DriftMonitorState, tracker.VioState, tracker.VioAux,
         preintegration.Preintegrated, matcher.AnchorResult,
-        campaign.CampaignData,
+        campaign.CampaignData, ba.BAProblem, ba.BAResult,
     ]
     return {t.__name__: t for t in types}
 
@@ -57,7 +57,7 @@ def _leaf_to_tensor(x, device):
     return torch.from_numpy(np.array(a, order="C")).to(device)
 
 
-def from_numpy_tree(tree, device=None):
+def from_numpy_tree(tree, device):
     """JAX-package state (numpy/JAX leaves) -> the port's tensors."""
     if tree is None or isinstance(tree, (str, bool, int, float)):
         return tree

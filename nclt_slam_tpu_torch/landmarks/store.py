@@ -32,7 +32,7 @@ class LandmarkStore(NamedTuple):
     has_last: torch.Tensor    # (B,) bool
 
 
-def init_store(cfg: LandmarkConfig, batch: int, device=None) -> LandmarkStore:
+def init_store(cfg: LandmarkConfig, batch: int, device) -> LandmarkStore:
     L, F, W = cfg.max_landmarks, cfg.feats_per_landmark, cfg.desc_words
     z = dict(device=device)
     return LandmarkStore(

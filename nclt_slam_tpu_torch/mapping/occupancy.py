@@ -18,7 +18,7 @@ from nclt_slam_tpu_torch.scene.terrain import terrain_height
 FREE_SAMPLES = 24   # free-space samples per ray (Bresenham replacement)
 
 
-def empty_grid(cfg: MapConfig, batch: int, device=None):
+def empty_grid(cfg: MapConfig, batch: int, device):
     return torch.zeros(batch, cfg.rows, cfg.cols, dtype=torch.float32,
                        device=device)
 

@@ -33,10 +33,11 @@ def nvcc() -> str:
     return found
 
 
-def build_library(source: Path, flags=BASE_FLAGS) -> Path:
+def build_library(source: Path, flags=BASE_FLAGS, headers=()) -> Path:
     """Compile ``source`` into ``build/kernels/lib<stem>_<hash>.so`` and
-    return its path (an existing build of the same source is reused)."""
-    src = source.read_bytes()
+    return its path (an existing build of the same source is reused).
+    ``headers`` are the ``csrc`` files it includes: they enter the hash."""
+    src = source.read_bytes() + b"".join(h.read_bytes() for h in headers)
     tag = hashlib.sha1(src + " ".join(flags).encode()).hexdigest()[:12]
     out = BUILD_DIR / f"lib{source.stem}_{tag}.so"
     if out.is_file():

@@ -13,9 +13,13 @@ straight through; the full stack (``config.ours()``: VIO with IMU, visual
 anchors at 2 Hz, the v55 relay) runs the 200 Hz IMU block, the feature
 observation with the dropped obstacles as occluders, ``vio_frame``, the
 anchor matcher and ``fusion_tick``, and holds the robot at spawn until the
-relay has committed its SLAM alignment.  The encoder-only and RGB-D-only
-ablations, the stock RPP follower, the GT-stall watchdog, stock waypoint
-following and local BA raise ``NotImplementedError``.
+relay has committed its SLAM alignment; the RGB-D-only mode
+(``config.rgbd_no_imu()``) is the same stack with constant-velocity
+prediction in place of the IMU.  ``VioConfig.enable_local_ba`` adds the
+sliding-window BA (kernel K3) every tenth tick, and
+``PlannerConfig.gt_stall_abort`` the baselines' GT-stall watchdog.  The
+encoder-only ablation, the stack without anchors, the stock RPP follower
+and stock waypoint following raise ``NotImplementedError``.
 
 Like the JAX package, the IMU block and the relay draw from the same
 ``k_fuse`` key of a tick.
@@ -80,6 +84,7 @@ from nclt_slam_tpu_torch.vio.tracker import (
     emit_body_pos,
     emit_slam_pose,
     init_vio,
+    local_ba,
     vio_frame,
 )
 
@@ -133,26 +138,20 @@ class RepeatResult(NamedTuple):
 
 def _check_ported(cfg: Config):
     m = cfg.mode
-    if not (m.use_gt or (m.use_slam and m.use_anchors and m.use_imu)):
+    if not (m.use_gt or (m.use_slam and m.use_anchors)):
         raise NotImplementedError(
-            "GT localization and the full stack (config.ours()) are ported; "
-            "the encoder-only and RGB-D-only ablations come with a later "
-            "slice")
+            "GT localization, the full stack (config.ours()) and the "
+            "RGB-D-only stack (config.rgbd_no_imu()) are ported; the "
+            "encoder-only ablation and the stack without anchors come with "
+            "the stock slice of the port")
     if cfg.planner.stock_follow:
         raise NotImplementedError(
             "PlannerConfig.stock_follow comes with the stock slice of the "
             "port")
-    if cfg.vio.enable_local_ba and not m.use_gt:
-        raise NotImplementedError(
-            "VioConfig.enable_local_ba needs kernel K3, which is not ported")
     if cfg.control.use_rpp:
         raise NotImplementedError(
             "ControlConfig.use_rpp (stock RPP baseline) comes with the stock "
             "slice of the port")
-    if cfg.planner.gt_stall_abort:
-        raise NotImplementedError(
-            "PlannerConfig.gt_stall_abort (baseline watchdog) comes with the "
-            "stock slice of the port")
 
 
 def repeat_step(carry: RepeatCarry, tick: int, scene: PackedScene,
@@ -210,6 +209,9 @@ def repeat_step(carry: RepeatCarry, tick: int, scene: PackedScene,
             cfg.sim.nav_decimation / cfg.sim.physics_hz,
             torch.tensor(GRAVITY, device=dev), cfg.camera, cfg.vio,
             mode.use_imu, key=k_vio)
+        # local sliding-window BA at 1 Hz
+        if cfg.vio.enable_local_ba and tick % 10 == 3:
+            vio = local_ba(vio, cfg.camera, cfg.vio)
         slam_t, slam_q = emit_slam_pose(vio, cfg.camera)
         slam_ok = slam_ok & torch.isfinite(slam_t).all(-1) & \
             torch.isfinite(slam_q).all(-1)
@@ -287,6 +289,25 @@ def repeat_step(carry: RepeatCarry, tick: int, scene: PackedScene,
     dispatch = dispatch_move(dispatch, nav_xy, scene.xy, scene.radius,
                              drop_active, cfg.planner)
 
+    # --- baseline GT-stall watchdog: a run whose GROUND TRUTH moves less
+    # than gt_stall_min_m inside the window ends at the first sustained
+    # stall.  Ring-sampled GT bounding box over the window; fires only
+    # after the warm-up (the bring-up hold parks the robot legitimately) ---
+    gt_hist = carry.gt_hist
+    if cfg.planner.gt_stall_abort:
+        W_h = gt_hist.shape[1]
+        period = cfg.planner.gt_stall_window_ticks // W_h
+        if tick % period == 0:
+            at = torch.arange(W_h, device=dev) == (tick // period) % W_h
+            gt_hist = torch.where(at[None, :, None], robot.xy[:, None],
+                                  gt_hist)
+        if tick >= max(cfg.planner.gt_stall_window_ticks,
+                       cfg.planner.gt_stall_warmup_ticks):
+            span = torch.linalg.vector_norm(
+                gt_hist.amax(1) - gt_hist.amin(1), dim=-1)
+            dispatch = dispatch._replace(
+                done=dispatch.done | (span < cfg.planner.gt_stall_min_m))
+
     # --- follower (thesis pure-pursuit stack) ---
     ctrl, v, w = follower_tick(
         carry.ctrl, nav_xy, nav_yaw, dispatch.path_xy, dispatch.n_path,
@@ -324,7 +345,7 @@ def repeat_step(carry: RepeatCarry, tick: int, scene: PackedScene,
         grid_live=grid_live, cost_win=cost_win,
         win_r0=win_r0, win_c0=win_c0,
         coarse_phi=coarse_phi, coarse_goal=coarse_goal,
-        gt_hist=carry.gt_hist,
+        gt_hist=gt_hist,
         cmd=torch.stack([v, w], -1), key=key)
     return new_carry, trace
 

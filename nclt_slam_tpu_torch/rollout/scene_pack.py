@@ -91,7 +91,7 @@ def _pack_numpy(scene: SceneColliders, drops: RouteDrops, cfg: Config,
 
 def pack_scene(scene: SceneColliders, drops: RouteDrops | None = None,
                cfg: Config | None = None, feat_seed: int = 123,
-               session: int = 0, device=None) -> PackedScene:
+               session: int = 0, *, device) -> PackedScene:
     """``session`` selects the appearance epoch: 0 = teach; a non-zero
     session is the repeat drive's (resampled detector, shifted
     descriptors).  Memoised on the host by content: a campaign build packs
@@ -115,7 +115,7 @@ def pack_scene(scene: SceneColliders, drops: RouteDrops | None = None,
     return PackedScene(*(torch.as_tensor(a).to(device) for a in packed))
 
 
-def pack_route(route: Route, cfg: Config, device=None) -> PackedRoute:
+def pack_route(route: Route, cfg: Config, device) -> PackedRoute:
     wps, n_wps = subsample_waypoints(route.dense_xy, route.n_dense,
                                      cfg.planner)
 

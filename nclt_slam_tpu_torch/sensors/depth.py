@@ -61,7 +61,7 @@ def camera_pose(base_pos, yaw, cfg: CameraConfig):
     return origin, R
 
 
-def ray_grid(cfg: CameraConfig, device=None):
+def ray_grid(cfg: CameraConfig, device):
     """Decimated pixel grid -> unit ray directions in the optical frame
     (rows, cols, 3)."""
     us = (torch.arange(cfg.ray_cols, dtype=torch.float32, device=device)

@@ -27,7 +27,7 @@ class DriftMonitorState(NamedTuple):
 
 
 def init_drift_monitor(cfg: TeachConfig, batch: int,
-                       device=None) -> DriftMonitorState:
+                       device) -> DriftMonitorState:
     C, B = cfg.drift_buf_cap, batch
     return DriftMonitorState(
         buf_vio=torch.zeros(B, C, 2, device=device),

@@ -39,6 +39,7 @@ from nclt_slam_tpu_torch.core.quat import (
     quat_conj,
     quat_mul,
     quat_to_mat,
+    skew,
     so3_exp,
     so3_log,
 )
@@ -93,7 +94,7 @@ class VioState(NamedTuple):
 
 
 def init_vio(desc_words: int, window_kf: int, batch: int,
-             device=None) -> VioState:
+             device) -> VioState:
     K, B = window_kf, batch
     z = dict(device=device)
     zi = torch.zeros(B, dtype=torch.int32, **z)
@@ -140,14 +141,6 @@ def _project(p_cam, cam: CameraConfig):
                         cam.fy * p_cam[..., 1] / z + cam.cy], -1)
 
 
-def _skew(y):
-    """[y]x for vectors (..., 3) -> (..., 3, 3)."""
-    y0, y1, y2 = y.unbind(-1)
-    z = torch.zeros_like(y0)
-    return torch.stack([z, -y2, y1, y2, z, -y0, -y1, y0, z],
-                       -1).reshape(y.shape + (3,))
-
-
 def _pose_gn(pos0, q0, X_w, uv_obs, z_obs, w_pt, cam: CameraConfig,
              cfg: VioConfig, prior_pos=None, prior_q=None,
              w_prior_pos: float = 0.0, w_prior_rot: float = 0.0):
@@ -183,7 +176,7 @@ def _pose_gn(pos0, q0, X_w, uv_obs, z_obs, w_pt, cam: CameraConfig,
                          (z - z_obs) / sigma_z], -1)       # (B, M, 3)
 
         # d p_base / d[θ, p] (B, M, 3, 6), then rows permuted into p_cam
-        Jb = torch.cat([_skew(y), (-R.transpose(-1, -2))[:, None].expand(
+        Jb = torch.cat([skew(y), (-R.transpose(-1, -2))[:, None].expand(
             B, M, 3, 3)], -1)
         Jc = base_to_cam(Jb.transpose(-1, -2)).transpose(-1, -2)
         act = (z > 0.1).to(torch.float32)[..., None]
@@ -480,10 +473,92 @@ def emit_slam_pose(state: VioState, cam: CameraConfig):
     return base_to_cam(t_nav), mat_to_quat(R_slam)
 
 
+TRUST_M = 0.5   # local BA: the largest keyframe move of an accepted solve
+WILD_M = 5.0    # local BA: a solve that moves a keyframe further is discarded
+
+
 def local_ba(state: VioState, cam: CameraConfig, cfg: VioConfig) -> VioState:
-    """Sliding-window local BA (``VioConfig.enable_local_ba``, off by
-    default) runs the Gauss-Newton BA of kernel K3, which is not ported
-    yet."""
-    raise NotImplementedError(
-        "local_ba (VioConfig.enable_local_ba) comes with the port slice of "
-        "kernel K3 (ops/ba_pallas.py)")
+    """Sliding-window local BA over the keyframe ring, for every route (one
+    window a route, one launch of kernel K3), run at a uniform cadence by
+    the rollout when ``VioConfig.enable_local_ba`` is set.
+
+    A window's landmark set is the newest keyframe's observed map slots;
+    the observation weights of the older keyframes come from slot-id
+    matching, so all shapes stay fixed.  The correction is scaled so that
+    the largest keyframe move is at most TRUST_M (a solve beyond WILD_M is
+    discarded); optimized keyframes update the ring and optimized points
+    write back to the map, each point gated on its own (seen by two
+    keyframes, moved at most 1 m).  The live pose is not touched: the
+    tracker benefits through the refined map and keyframes only.  A route
+    whose window fails the ``enough`` gate keeps its state."""
+    from nclt_slam_tpu_torch.vio.ba import BAProblem, solve_ba
+
+    B, K = state.kf_pos.shape[:2]
+    S = state.kf_obs_slot.shape[2]
+    dev = state.kf_pos.device
+    f32 = torch.float32
+    newest = ((state.kf_ptr - 1) % K).long()
+    slots = _take(state.kf_obs_slot, newest[:, None])[:, 0].long()  # (B, P)
+    pts0 = _take(state.map_xyz, slots)
+
+    # (B, K, P) observation weights by slot-id equality against each
+    # keyframe's observations; src is the first matching observation (0
+    # where there is none, as an argmax over an all-false column)
+    pair_ok = (state.kf_obs_slot[:, :, :, None] == slots[:, None, None, :]) \
+        & state.kf_obs_valid[:, :, :, None]                # (B, K, S, P)
+    rows = torch.arange(S, dtype=torch.int32, device=dev)[:, None]
+    src = torch.where(pair_ok, rows, torch.full_like(rows, S)).amin(2)
+    seen = src < S
+    src = torch.where(seen, src, torch.zeros_like(src)).long()
+    obs_w = (seen & state.kf_valid[:, :, None]).to(f32)
+    obs_uv = torch.gather(state.kf_obs_uv, 2,
+                          src[..., None].expand(B, K, src.shape[2], 2))
+    obs_z = torch.gather(state.kf_obs_z, 2, src)
+
+    # order the ring chronologically (oldest..newest) for the rel factors
+    order = ((state.kf_ptr[:, None] + torch.arange(K, device=dev)) % K).long()
+    kf_pos = _take(state.kf_pos, order)
+    kf_quat = _take(state.kf_quat, order)
+    kf_ok = _take(state.kf_valid, order)
+    obs_w = _take(obs_w, order) * kf_ok[:, :, None].to(f32)
+    obs_uv = _take(obs_uv, order)
+    obs_z = _take(obs_z, order)
+
+    # relative factors from the current estimates (a regularizer holding
+    # the window's shape while reprojection refines it)
+    dq = quat_mul(quat_conj(kf_quat[:, :-1]), kf_quat[:, 1:])
+    dp = torch.matmul((kf_pos[:, 1:] - kf_pos[:, :-1])[..., None, :],
+                      quat_to_mat(kf_quat[:, :-1]))[..., 0, :]
+    # anchor each point at its running-mean estimate, one pixel^2 residual
+    # per prior re-observation (capped: very old points stay adjustable)
+    pt_prior = 0.5 * _take(state.map_obs, slots).clamp_max(100).to(f32)
+    prob = BAProblem(kf_pos=kf_pos, kf_quat=kf_quat, points=pts0,
+                     obs_uv=obs_uv, obs_z=obs_z, obs_w=obs_w,
+                     rel_dp=dp, rel_dq=dq, w_rel=10.0, pt_prior_w=pt_prior)
+    res = solve_ba(prob, cam, cfg, iters=3, site="local_ba")
+
+    finite = torch.isfinite(res.kf_pos).flatten(1).all(1) & \
+        torch.isfinite(res.kf_quat).flatten(1).all(1) & \
+        torch.isfinite(res.points).flatten(1).all(1)
+    d_kf = _norm(res.kf_pos - kf_pos).amax(1)              # (B,)
+    scale = torch.clamp_max(TRUST_M / d_kf.clamp_min(1e-6), 1.0)[:, None, None]
+    ba_pos = kf_pos + scale * (res.kf_pos - kf_pos)
+    drot = so3_log(quat_mul(quat_conj(kf_quat), res.kf_quat))
+    ba_quat = quat_mul(kf_quat, so3_exp(scale * drot))
+    ba_quat = ba_quat / _norm(ba_quat, True)
+    enough = (obs_w.sum((1, 2)) >= 12) & (state.kf_valid.sum(1) >= 3) & \
+        finite & (d_kf <= WILD_M) & ~state.lost
+
+    # write back: keyframes (undo the chronological reorder)
+    inv = torch.argsort(order, dim=1)
+    gate = enough[:, None, None]
+    new_kf_pos = torch.where(gate, _take(ba_pos, inv), state.kf_pos)
+    new_kf_quat = torch.where(gate, _take(ba_quat, inv), state.kf_quat)
+
+    # map write-back, gated per point; slot ids may repeat (an unmatched
+    # observation carries its nearest slot): the last row wins
+    valid_pt = (obs_w.sum(1) >= 2) & (_norm(res.points - pts0) <= 1.0)
+    map_xyz = _set_last(state.map_xyz, slots, torch.where(
+        (valid_pt & enough[:, None])[..., None], res.points, pts0))
+    return state._replace(kf_pos=new_kf_pos, kf_quat=new_kf_quat,
+                          map_xyz=map_xyz)

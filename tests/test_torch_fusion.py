@@ -90,7 +90,7 @@ def test_relay_sequence_matches_jax():
         lambda st, xy, std, tk: anchor_update(st, xy, std, tk, fcfg),
         in_axes=(0, 0, 0, None)))
     jst = jax.vmap(lambda _: init_fusion(fcfg))(jnp.arange(R))
-    tst = tr.init_fusion(tfcfg, R)
+    tst = tr.init_fusion(tfcfg, R, "cpu")
     keys = jax.random.split(jax.random.PRNGKey(4), R)
     j_nav, t_nav, j_reg, t_reg = [], [], [], []
     for i in range(TICKS):

@@ -95,3 +95,59 @@ def test_hamming_kernel_rejects_unsupported(cuda):
         d = torch.zeros(1, 4, words, dtype=torch.int64, device=cuda)
         with pytest.raises(ValueError):
             hm.cross_check(d, v, d, v)
+
+
+# K3 against its plain version on consistent windows (B, K, P, iters, point
+# prior, w_rel).  The two differ in the reduced solve (Gauss-Jordan against
+# Cholesky) and in summation order, so they agree by the tolerances of the
+# JAX package's tests/test_ba_pallas.py: poses 2e-4 m, quaternions 2e-5,
+# points 1e-3 m, cost 1e-3 relative.
+BA_SHAPES = [(3, 6, 64, 10, None, 100.0), (1, 6, 40, 6, 50.0, 100.0),
+             (2, 10, 48, 6, None, 100.0), (15, 16, 192, 3, 50.0, 10.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", BA_SHAPES)
+def test_ba_kernel_matches_plain(cuda, shape):
+    from nclt_slam_tpu_torch import config
+    from nclt_slam_tpu_torch.ops import ba as ops_ba
+    from nclt_slam_tpu_torch.vio import ba
+    from nclt_slam_tpu_torch.vio.ba_problems import consistent_windows
+
+    B, K, P, iters, prior, w_rel = shape
+    cfg = config.DEFAULT
+    prob, _ = consistent_windows(range(B), cuda, K=K, P=P, w_rel=w_rel,
+                                 prior=prior)
+    before = ops_ba.solve_ba_cuda.launches
+    got = ba.solve_ba(prob, cfg.camera, cfg.vio, iters=iters, site="test")
+    again = ba.solve_ba(prob, cfg.camera, cfg.vio, iters=iters, site="test")
+    torch.cuda.synchronize()
+    assert ops_ba.solve_ba_cuda.launches == before + 2
+    ref = ba.solve_ba_plain(prob, cfg.camera, cfg.vio, iters=iters)
+    for f, tol in (("kf_pos", 2e-4), ("kf_quat", 2e-5), ("points", 1e-3)):
+        assert (getattr(got, f) - getattr(ref, f)).abs().max().item() <= tol, f
+    torch.testing.assert_close(got.final_cost, ref.final_cost, rtol=1e-3,
+                               atol=0.0)
+    # fixed summation order, no atomics: a run repeats bit for bit
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_ba_kernel_rejects_unsupported(cuda):
+    from nclt_slam_tpu_torch import config
+    from nclt_slam_tpu_torch.vio import ba
+    from nclt_slam_tpu_torch.vio.ba_problems import bench_windows
+
+    cfg = config.DEFAULT
+    # a 40-keyframe reduced system (240 x 241 floats) is beyond one block's
+    # shared memory
+    with pytest.raises(ValueError):
+        ba.solve_ba(bench_windows(1, 40, 64, cuda), cfg.camera, cfg.vio)
+    prob = bench_windows(1, 6, 32, cuda)
+    with pytest.raises(TypeError):
+        ba.solve_ba(prob._replace(obs_z=prob.obs_z.double()), cfg.camera,
+                    cfg.vio)
+    with pytest.raises(ValueError):
+        ba.solve_ba(prob._replace(obs_w=prob.obs_w[:, :, :-1]), cfg.camera,
+                    cfg.vio)

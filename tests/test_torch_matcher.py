@@ -35,7 +35,7 @@ CFG = DEFAULT
 
 def _stack(trees):
     return interop.from_numpy_tree(jax.tree_util.tree_map(
-        lambda *xs: np.stack([np.asarray(x) for x in xs]), *trees))
+        lambda *xs: np.stack([np.asarray(x) for x in xs]), *trees), "cpu")
 
 
 def test_kabsch_matches_jax():

@@ -64,7 +64,7 @@ B = 2
 
 def T(x):
     """numpy/JAX -> torch (uint32 -> int64, as the port holds it)."""
-    return interop.from_numpy_tree(np.asarray(x))
+    return interop.from_numpy_tree(np.asarray(x), "cpu")
 
 
 def N(x):
@@ -75,7 +75,7 @@ def batched_scene():
     """The miniature scene of the JAX end-to-end test, as a 2-route batch."""
     s = tiny_scene(drop_on_path=True)
     jb = jax.tree_util.tree_map(lambda x: jnp.stack([x] * B), s)
-    return jb, interop.from_numpy_tree(jb)
+    return jb, interop.from_numpy_tree(jb, "cpu")
 
 
 def keys(seed):
@@ -118,7 +118,7 @@ def test_nav_substeps_from_shared_key():
         a, b, c, jnp.float32(0.1), jnp.array(False)))(xy, yaw, v0)
     valid = jsc.valid & ~jsc.drop_mask.at[1].set(False)
     state = jst
-    tstate = interop.from_numpy_tree(jst)
+    tstate = interop.from_numpy_tree(jst, "cpu")
     step = jax.jit(jax.vmap(
         lambda s, v, w, oxy, orad, oval, k: jdd.nav_substeps(
             s, v, w, oxy, orad, oval, k, JC.sim)))
@@ -267,7 +267,7 @@ def test_record_tick_matches_jax():
     jsc, tsc, pos, yaw, yaw_rate, jk, tk = _observe_inputs(6)
     lc = JC.landmarks
     jst = jax.vmap(lambda _: jstore.init_store(lc))(jnp.arange(B))
-    tst = tstore.init_store(TC.landmarks, B)
+    tst = tstore.init_store(TC.landmarks, B, "cpu")
     valid_now = np.asarray(jsc.valid)
     obs = jax.jit(jax.vmap(lambda a, y, sc, v, k: jfeat.observe(
         a, y, j_scene_features(sc), v, k, JC.camera, lc)))
@@ -281,7 +281,8 @@ def test_record_tick_matches_jax():
         cam_p, _ = jax.vmap(lambda a, y: jdepth.camera_pose(a, y, JC.camera))(
             p, yaw)
         jst = rec(jst, jo, p, yaw)
-        tst = tstore.record_tick(tst, interop.from_numpy_tree(jo), T(cam_p),
+        tst = tstore.record_tick(tst, interop.from_numpy_tree(jo, "cpu"),
+                                 T(cam_p),
                                  T(yaw), TC.camera, TC.landmarks)
     assert int(np.asarray(jst.count).min()) >= 2
     for f in ("desc", "feat_valid", "n_feats", "count", "has_last"):
@@ -301,7 +302,8 @@ def test_pack_scene_and_route_match_jax():
     for a, b in zip(jd, td):
         assert np.array_equal(a, b)
     jp = jpack.pack_scene(scene, jd, cfg=JC, session=1)
-    tp = tpack.pack_scene(t_default_scene(7), td, cfg=TC, session=1)
+    tp = tpack.pack_scene(t_default_scene(7), td, cfg=TC, session=1,
+                          device="cpu")
     for f in ("xy", "radius", "height", "valid", "drop_mask", "feat_owner",
               "feat_valid", "feat_view_thr", "feat_view_alpha", "feat_pkeep"):
         assert np.array_equal(interop.to_numpy_tree(getattr(tp, f)),
@@ -313,7 +315,7 @@ def test_pack_scene_and_route_match_jax():
     np.testing.assert_allclose(N(tp.base_z), np.asarray(jp.base_z), atol=2e-6)
     np.testing.assert_allclose(N(tp.feat_xyz), np.asarray(jp.feat_xyz),
                                rtol=0, atol=4e-6)
-    jpr, tpr = jpack.pack_route(jr, JC), tpack.pack_route(tr, TC)
+    jpr, tpr = jpack.pack_route(jr, JC), tpack.pack_route(tr, TC, "cpu")
     for a, b in zip(jpr, tpr):
         assert np.array_equal(np.asarray(a), N(b))
 
@@ -395,7 +397,7 @@ def test_follower_tick_matches_jax():
         -1)[None]).astype(np.float32)
     n_path = np.array([60, 96], np.int32)
     js = jax.vmap(lambda _: jpp.init_ctrl())(jnp.arange(B))
-    ts = tpp.init_ctrl(B)
+    ts = tpp.init_ctrl(B, "cpu")
     pos = origin + np.array([0.4, 0.1], np.float32)
     yaw = np.array([0.2, -0.4], np.float32)
     active = np.array([True, True])

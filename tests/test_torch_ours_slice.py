@@ -85,7 +85,7 @@ def configs():
 
 def batch1(tree):
     return interop.from_numpy_tree(jax.tree_util.tree_map(
-        lambda x: np.asarray(x)[None], tree))
+        lambda x: np.asarray(x)[None], tree), "cpu")
 
 
 def unbatch(tree):
@@ -179,18 +179,23 @@ def test_ours_repeat_exercised_the_stack(runs):
 
 
 def test_unported_modes_raise():
+    from nclt_slam_tpu_torch.baselines import configs as tbase
     from nclt_slam_tpu_torch.rollout.repeat import _check_ported
 
     _, _, _, tr = configs()
-    for cfg in (tcfg_mod.encoder_only(), tcfg_mod.rgbd_no_imu(),
-                tr.replace(vio=dataclasses.replace(tr.vio,
-                                                   enable_local_ba=True)),
+    stock_mode = dataclasses.replace(tr.mode, use_anchors=False)
+    for cfg in (tcfg_mod.encoder_only(), tr.replace(mode=stock_mode),
+                tr.replace(control=dataclasses.replace(tr.control,
+                                                       use_rpp=True)),
                 tr.replace(planner=dataclasses.replace(tr.planner,
                                                        stock_follow=True))):
         with pytest.raises(NotImplementedError):
             _check_ported(cfg)
-    _check_ported(tr)
-    _check_ported(tcfg_mod.gt_localization())
+    for cfg in (tr, tcfg_mod.gt_localization(), tcfg_mod.rgbd_no_imu(),
+                tbase.rgbd_no_imu(), tbase.rgbd_ba(),
+                tr.replace(vio=dataclasses.replace(tr.vio,
+                                                   enable_local_ba=True))):
+        _check_ported(cfg)
 
 
 def test_jax_ours_carry_round_trips_and_steps(runs):

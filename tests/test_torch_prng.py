@@ -13,7 +13,7 @@ SHAPES = ((), (3,), (7, 5), (4, 8, 32))
 
 
 def _pair(seed):
-    return jax.random.PRNGKey(seed), prng.PRNGKey(seed)
+    return jax.random.PRNGKey(seed), prng.PRNGKey(seed, "cpu")
 
 
 def _ulps(a, b):

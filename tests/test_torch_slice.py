@@ -60,7 +60,7 @@ def port_small_config():
 def batch1(tree):
     """A single-route JAX tree as a 1-route batch of the port."""
     return interop.from_numpy_tree(jax.tree_util.tree_map(
-        lambda x: np.asarray(x)[None], tree))
+        lambda x: np.asarray(x)[None], tree), "cpu")
 
 
 @pytest.fixture(scope="module")
@@ -138,13 +138,13 @@ def test_initial_carries_match_jax_field_for_field():
                                    np.asarray(getattr(jteach.imu, f)),
                                    rtol=1e-6)
     imu = interop.from_numpy_tree(jax.tree_util.tree_map(
-        lambda x: np.asarray(x)[None], jteach.imu))
+        lambda x: np.asarray(x)[None], jteach.imu), "cpu")
     _assert_trees_equal(tteach._replace(imu=imu), jteach)
     jrep = j_init_rep(packed, wps, n_wps, cfg)
     trep = init_repeat_carry(batch1(packed), torch.from_numpy(wps)[None],
                              torch.tensor([n_wps], dtype=torch.int32), tc)
     imu = interop.from_numpy_tree(jax.tree_util.tree_map(
-        lambda x: np.asarray(x)[None], jrep.imu))
+        lambda x: np.asarray(x)[None], jrep.imu), "cpu")
     _assert_trees_equal(trep._replace(imu=imu), jrep)
 
 
@@ -253,13 +253,15 @@ def test_port_runs_without_jax():
     code = (
         "import dataclasses, sys\n"
         "from nclt_slam_tpu_torch import config, interop\n"
+        "from nclt_slam_tpu_torch.baselines import configs as baselines\n"
         "from nclt_slam_tpu_torch.core import lie, quat\n"
         "from nclt_slam_tpu_torch.eval import metrics\n"
         "from nclt_slam_tpu_torch.fusion import relay\n"
         "from nclt_slam_tpu_torch.landmarks import matcher\n"
-        "from nclt_slam_tpu_torch.ops import hamming, wavefront\n"
-        "from nclt_slam_tpu_torch.vio import drift_monitor, preintegration, "
-        "tracker\n"
+        "from nclt_slam_tpu_torch.ops import ba as ops_ba, hamming, "
+        "wavefront\n"
+        "from nclt_slam_tpu_torch.vio import ba, ba_problems, drift_monitor, "
+        "preintegration, tracker\n"
         "from nclt_slam_tpu_torch.rollout.campaign import build_campaign\n"
         "from nclt_slam_tpu_torch.rollout.repeat import init_repeat_carry, "
         "repeat_step\n"
@@ -281,6 +283,18 @@ def test_port_runs_without_jax():
         "torch.zeros(1, ours.map.rows, ours.map.cols, dtype=torch.int8), "
         "carry.store, ours)\n"
         "assert int(rt.anchor_reason[0]) >= 0 and int(rt.regime[0]) >= 0\n"
+        "rb = baselines.rgbd_ba()\n"
+        "assert rb.vio.enable_local_ba and rb.planner.gt_stall_abort\n"
+        "rc = init_repeat_carry(data.routes, wps, torch.tensor([1], "
+        "dtype=torch.int32), rb)\n"
+        "solves = []\n"
+        "orig = ba.solve_ba_plain\n"
+        "ba.solve_ba_plain = lambda *a, **k: (solves.append(1), "
+        "orig(*a, **k))[1]\n"
+        "rc, rt = repeat_step(rc, 3, data.scenes_repeat, data.routes, "
+        "torch.zeros(1, rb.map.rows, rb.map.cols, dtype=torch.int8), "
+        "carry.store, rb)\n"
+        "assert solves == [1] and torch.isfinite(rt.nav_xy).all()\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m == 'nclt_slam_tpu' or m.startswith(('jax.', 'jaxlib', 'nclt_slam_tpu.'))]\n"
         "assert not bad, bad\n"

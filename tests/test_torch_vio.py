@@ -65,12 +65,13 @@ def vio_teach_configs():
 
 def batched(tree):
     """A JAX tree with a leading route axis -> the port's tensors."""
-    return interop.from_numpy_tree(jax.tree_util.tree_map(np.asarray, tree))
+    return interop.from_numpy_tree(jax.tree_util.tree_map(np.asarray, tree),
+                                   "cpu")
 
 
 def batch1(tree):
     return interop.from_numpy_tree(jax.tree_util.tree_map(
-        lambda x: np.asarray(x)[None], tree))
+        lambda x: np.asarray(x)[None], tree), "cpu")
 
 
 def _t(x):
@@ -297,7 +298,7 @@ def test_drift_monitor_matches_jax():
     rng = np.random.RandomState(3)
     B = 3
     jst = jax.vmap(lambda _: jdm.init_drift_monitor(cfg))(jnp.arange(B))
-    tst = tdm.init_drift_monitor(cfg, B)
+    tst = tdm.init_drift_monitor(cfg, B, "cpu")
     th = np.array([0.3, -1.2, 2.5])
     for i in range(700):
         gt = rng.normal(0, 20, (B, 2)).astype(np.float32) * 0 + i * 0.05
