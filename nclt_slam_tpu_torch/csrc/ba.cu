@@ -28,8 +28,10 @@
 // factors' with jacfwd of the same residual, the so3_log included).
 //
 // What bounds it on an H100.  A 16 x 192 window moves 60 KB in and 3 KB out
-// and does ~17 MFLOP an iteration, dominated by the Schur product
-// (6K)^2 x 3P: microseconds at the card's float32 rate.  The main path calls
+// and needs ~7.7 MFLOP an iteration with every observation present (~630
+// operations an observation, the symmetric half of the Schur product
+// (6K)^2 x 3P, which dominates, and the reduced solve): microseconds at the
+// card's float32 rate.  The main path calls
 // it on 15 windows (one per route) every tenth repeat tick, the batch
 // benchmark on 64, so at most half of the 132 SMs have a block, and inside a
 // block the 6K pivot steps of the reduced solve and the barriers between the
@@ -38,7 +40,7 @@
 // What the design does about it.  Everything of a window stays on one SM:
 // the reduced system, the poses, the landmarks and their 3x3 blocks live in
 // shared memory for the whole solve, and nothing intermediate goes to device
-// memory.  An observation's residual, weight and Jacobians cost ~150
+// memory.  An observation's residual, weight and Jacobians cost ~100
 // operations, so they are recomputed where they are needed (normal-equation
 // blocks, Schur tiles, back-substitution) instead of being stored: the 6K x
 // 3P matrix B would not fit shared memory at the largest benchmark window.

@@ -70,9 +70,10 @@ class BAResult(NamedTuple):
     final_cost: torch.Tensor  # (B,) cost at the last linearization point
 
 
-def broadcast_w_rel(w_rel, B: int, Km1: int, device) -> torch.Tensor:
-    """``w_rel`` as a (B, K-1) float32 tensor."""
-    w = torch.as_tensor(w_rel, dtype=torch.float32, device=device)
+def broadcast_w_rel(w_rel, B: int, Km1: int, device,
+                    dtype=torch.float32) -> torch.Tensor:
+    """``w_rel`` as a (B, K-1) tensor."""
+    w = torch.as_tensor(w_rel, dtype=dtype, device=device)
     if w.dim() == 1:
         w = w[:, None]
     return w.expand(B, Km1)
@@ -215,7 +216,7 @@ def rel_jacobians(pos_i, q_i, pos_j, q_j, dq_meas):
     return Ji, Jj
 
 
-def _check(prob: BAProblem):
+def _check(prob: BAProblem, dtypes=(torch.float32,)):
     if prob.kf_pos.dim() != 3 or prob.kf_pos.shape[-1] != 3:
         raise ValueError("solve_ba takes batched windows: kf_pos (B, K, 3); "
                          f"got {tuple(prob.kf_pos.shape)}")
@@ -235,8 +236,10 @@ def _check(prob: BAProblem):
             raise ValueError(f"solve_ba: {name} is {tuple(t.shape)}, "
                              f"expected {shape}")
         tensors.append(t)
-    if any(t.dtype != torch.float32 for t in tensors):
-        raise TypeError("solve_ba takes float32 tensors")
+    if prob.kf_pos.dtype not in dtypes or \
+            any(t.dtype != prob.kf_pos.dtype for t in tensors):
+        raise TypeError("solve_ba takes tensors of one dtype out of "
+                        f"{[str(d) for d in dtypes]}")
     if len({t.device for t in tensors}) != 1:
         raise ValueError("solve_ba inputs are on different devices")
 
@@ -246,22 +249,23 @@ def solve_ba_plain(prob: BAProblem, cam: CameraConfig, cfg: VioConfig,
     """The plain PyTorch version: batched einsums and a Cholesky solve of
     the reduced system.  A window whose system is not positive definite (or
     not finite) takes a zero pose step, and nothing of it reaches another
-    window."""
-    _check(prob)
+    window.  It also takes float64 problems: a reference to hold the
+    float32 solvers against."""
+    _check(prob, (torch.float32, torch.float64))
     B, K, _ = prob.kf_pos.shape
     P = prob.points.shape[1]
     N = 6 * K
-    dev = prob.kf_pos.device
+    dev, dt = prob.kf_pos.device, prob.kf_pos.dtype
     n_iter = iters or cfg.gn_iters
     damping = cfg.lm_damping
-    w_rel = broadcast_w_rel(prob.w_rel, B, K - 1, dev)       # (B, K-1)
-    eye3 = torch.eye(3, device=dev)
-    eyeN = torch.eye(N, device=dev)
+    w_rel = broadcast_w_rel(prob.w_rel, B, K - 1, dev, dt)   # (B, K-1)
+    eye3 = torch.eye(3, device=dev, dtype=dt)
+    eyeN = torch.eye(N, device=dev, dtype=dt)
     kk = torch.arange(K, device=dev)
     ii = kk[:-1]
 
     pos, quat, pts = prob.kf_pos, prob.kf_quat, prob.points
-    cost = torch.zeros(B, device=dev)
+    cost = torch.zeros(B, device=dev, dtype=dt)
     for _ in range(n_iter):
         r, Jp, Jl = reprojection(pos, quat, pts, prob.obs_uv, prob.obs_z, cam)
         w = robust_weights(r, prob.obs_w, cfg)               # (B, K, P)
@@ -279,7 +283,7 @@ def solve_ba_plain(prob: BAProblem, cam: CameraConfig, cfg: VioConfig,
         Ji, Jj = rel_jacobians(*args, prob.rel_dq)           # (B, K-1, 6, 6)
         wJi = w_rel[..., None, None] * Ji
         wJj = w_rel[..., None, None] * Jj
-        Hb = torch.zeros(B, K, K, 6, 6, device=dev)
+        Hb = torch.zeros(B, K, K, 6, 6, device=dev, dtype=dt)
         Hb[:, kk, kk] += H_pp
         Hb[:, ii, ii] += torch.einsum("bkri,bkrj->bkij", wJi, Ji)
         Hb[:, ii + 1, ii + 1] += torch.einsum("bkri,bkrj->bkij", wJj, Jj)
@@ -288,7 +292,7 @@ def solve_ba_plain(prob: BAProblem, cam: CameraConfig, cfg: VioConfig,
         g = g_p.clone()
         g[:, :-1] += torch.einsum("bkri,bkr->bki", wJi, r_rel)
         g[:, 1:] += torch.einsum("bkri,bkr->bki", wJj, r_rel)
-        Hb[:, 0, 0] += PRIOR_W * torch.eye(6, device=dev)
+        Hb[:, 0, 0] += PRIOR_W * torch.eye(6, device=dev, dtype=dt)
         H = Hb.permute(0, 1, 3, 2, 4).reshape(B, N, N)
         g = g.reshape(B, N)
 

@@ -34,7 +34,9 @@ from nclt_slam_tpu_torch import interop  # noqa: E402
 from nclt_slam_tpu_torch.config import DEFAULT as TCFG  # noqa: E402
 from nclt_slam_tpu_torch.core.quat import quat_mul, quat_to_mat, so3_exp  # noqa: E402
 from nclt_slam_tpu_torch.vio import ba as tba  # noqa: E402
-from nclt_slam_tpu_torch.vio import ba_problems  # noqa: E402
+
+sys.path.insert(0, str(Path(__file__).parent.parent))
+import chip_smoke as ba_problems  # noqa: E402  (the port's BA generators)
 
 torch.set_num_threads(1)
 
@@ -271,6 +273,26 @@ def test_flop_count_equals_the_benchmarks():
     for K, P in ((16, 192), (10, 48), (24, 512)):
         assert ba_problems.ba_flops_per_iter(K, P) == \
             bench._ba_flops_per_iter(K, P)
+
+
+def test_plain_solver_takes_float64():
+    """The float64 plain solve, the reference the float32 solvers are held
+    against on the card, agrees with the float32 one within the solvers'
+    tolerance and keeps its dtype; mixed dtypes are refused."""
+    tprob, _, _ = _windows([0, 1], 6, 40, 50.0)
+    p64 = tba.BAProblem(*(t.double() if torch.is_tensor(t) else t
+                          for t in tprob))
+    r32 = tba.solve_ba_plain(tprob, TCFG.camera, TCFG.vio, iters=6)
+    r64 = tba.solve_ba_plain(p64, TCFG.camera, TCFG.vio, iters=6)
+    assert all(x.dtype == torch.float64 for x in r64)
+    assert (r32.kf_pos - r64.kf_pos).abs().max() <= 2e-4
+    assert (r32.kf_quat - r64.kf_quat).abs().max() <= 2e-5
+    assert (r32.points - r64.points).abs().max() <= 1e-3
+    with pytest.raises(TypeError):
+        tba.solve_ba_plain(p64._replace(obs_z=tprob.obs_z), TCFG.camera,
+                           TCFG.vio)
+    with pytest.raises(TypeError):
+        tba.solve_ba(p64, TCFG.camera, TCFG.vio)
 
 
 def test_solve_ba_checks_its_input():

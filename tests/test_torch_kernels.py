@@ -7,11 +7,17 @@ so it also runs where only the port is installed:
 Without a CUDA device every test here skips (a kernel has no CPU mode).
 """
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 from nclt_slam_tpu_torch.ops import wavefront as ops
+
+# the BA problem generators live in the smoke script at the repository's root
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 BIG = 1e9
 
@@ -112,7 +118,7 @@ def test_ba_kernel_matches_plain(cuda, shape):
     from nclt_slam_tpu_torch import config
     from nclt_slam_tpu_torch.ops import ba as ops_ba
     from nclt_slam_tpu_torch.vio import ba
-    from nclt_slam_tpu_torch.vio.ba_problems import consistent_windows
+    from chip_smoke import consistent_windows
 
     B, K, P, iters, prior, w_rel = shape
     cfg = config.DEFAULT
@@ -137,7 +143,7 @@ def test_ba_kernel_matches_plain(cuda, shape):
 def test_ba_kernel_rejects_unsupported(cuda):
     from nclt_slam_tpu_torch import config
     from nclt_slam_tpu_torch.vio import ba
-    from nclt_slam_tpu_torch.vio.ba_problems import bench_windows
+    from chip_smoke import bench_windows
 
     cfg = config.DEFAULT
     # a 40-keyframe reduced system (240 x 241 floats) is beyond one block's

@@ -55,7 +55,7 @@ from nclt_slam_tpu_torch.vio import tracker as ttracker  # noqa: E402
 torch.set_num_threads(1)
 
 TEACH_TICKS = 100
-REPEAT_TICKS = 100
+REPEAT_TICKS = 94      # ends with the solve of tick 93, the sixth accepted
 STALL_WINDOW = 36     # ticks: a ring period of 2
 STALL_WARMUP = 60
 STALL_MIN_M = 0.2

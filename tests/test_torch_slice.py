@@ -260,7 +260,7 @@ def test_port_runs_without_jax():
         "from nclt_slam_tpu_torch.landmarks import matcher\n"
         "from nclt_slam_tpu_torch.ops import ba as ops_ba, hamming, "
         "wavefront\n"
-        "from nclt_slam_tpu_torch.vio import ba, ba_problems, drift_monitor, "
+        "from nclt_slam_tpu_torch.vio import ba, drift_monitor, "
         "preintegration, tracker\n"
         "from nclt_slam_tpu_torch.rollout.campaign import build_campaign\n"
         "from nclt_slam_tpu_torch.rollout.repeat import init_repeat_carry, "
