@@ -7,7 +7,7 @@ Phases, each of which must pass (any failure exits non-zero):
 
 1. print the card (``nvidia-smi`` name and power limit), torch/CUDA versions
    and the TF32 switches;
-2. build the three hand-written kernels from ``nclt_slam_tpu_torch/csrc``
+2. build the four hand-written kernels from ``nclt_slam_tpu_torch/csrc``
    with nvcc, one compiler process per source, all started together;
 3. hold the wavefront kernel (K2) against its plain PyTorch version, bit for
    bit (``torch.equal``), at the planner's two shapes — (15, 192, 192)
@@ -26,6 +26,12 @@ Phases, each of which must pass (any failure exits non-zero):
    must reach the generator's truth; time it at the rollout's shape and, on
    the batch benchmark's random windows, at 64 x 16 x 192 x 8 iterations
    and the benchmark's sweep shapes;
+5b. hold the pose-graph kernel (K4) against its plain version in float32
+   and float64 by tolerance on three reduced graphs (the JAX package's
+   two-lap test graph; the fused route's padded graph at the SLAM tool's
+   shape, 130 poses and 64 loop slots; a graph with no valid loop), two
+   runs bit-equal; time it at the tool's shape beside 15 calls of
+   ``torch.linalg.solve`` on its 390-unknown system;
 6. replay the JAX reference fixture of the GT-localized campaign
    (``tests/data/torch_gt_campaign_fixture.npz``: 2 routes at full width,
    100 teach + 100 repeat ticks) and compare within the tolerances below;
@@ -39,6 +45,17 @@ Phases, each of which must pass (any failure exits non-zero):
    included; every window that the rollout gives K3 is also held against a
    float64 solve, and the replay's end against a replay with the plain
    version in the kernel's place;
+8b. replay the JAX reference SLAM session
+   (``tests/data/torch_slam_fixture.npz``: the SLAM tool's winter season cut
+   to 401 scans x 128 points) through ``run_slam`` and compare: loop pairs
+   and detector flags equal, the open chain up to its first ICP
+   correspondence flip, each loop whose RANSAC stage matches JAX's by its
+   accept flag and measurement and every other one through
+   ``registration.refine_and_gate`` from JAX's recorded RANSAC result (an
+   accept flag may differ only there, on at most a tenth of the
+   candidates; where each such candidate leaves the port's CPU run is
+   printed); hold K4 and the fused PGO on the fixture's own pose graph
+   against JAX's;
 9. drive the GT-localized main path through the campaign API: 15 routes at
    full width, a GT teach, teach waypoints, a GT repeat with
    ``stop_when_done=False``; check that K2 was launched on it;
@@ -56,9 +73,16 @@ Phases, each of which must pass (any failure exits non-zero):
     passed its gate and moved a keyframe or a map point, every trace is
     finite, every relay committed and the robots moved; then a shorter
     ``rgbd_no_imu()`` repeat (no BA) for the same mode without it;
-12. profile a short window of the ours repeat for the launches per tick and
-    the device's busy share (last, because the profiler slows every launch
-    that follows it in the process).
+11b. drive the LiDAR SLAM main path: the SLAM tool's winter session at full
+    width (2000 scans x 1024 points) through ``run_slam``; check that K4 was
+    launched exactly once, from the fused PGO, every pose is finite, a loop
+    was accepted and the optimized ATE is no worse than the open one; print
+    each stage's wall seconds, scans/s and the ladder row, and time the
+    ICP's parts;
+12. profile a short window of the ours repeat, and one full-width ICP, for
+    the launches per tick (per ICP iteration) and the device's busy share
+    (last, because the profiler slows every launch that follows it in the
+    process).
 
 Each main path runs with the kernels' launch counts set to 0 just before
 it and read just after.  The last three lines are a JSON line of
@@ -83,6 +107,7 @@ FIXTURE = REPO / "tests" / "data" / "torch_gt_campaign_fixture.npz"
 OURS_FIXTURE = REPO / "tests" / "data" / "torch_ours_campaign_fixture.npz"
 RGBD_BA_FIXTURE = REPO / "tests" / "data" / \
     "torch_rgbd_ba_campaign_fixture.npz"
+SLAM_FIXTURE = REPO / "tests" / "data" / "torch_slam_fixture.npz"
 
 TEACH_TICKS = 500
 REPEAT_TICKS = 300
@@ -153,6 +178,61 @@ FIX_BA_SOLVER_ATOL_M = 1e-3
 OURS_DISCRETE = ("regime", "anchor_ok", "anchor_reason", "vio_tracked",
                  "wp_idx", "done")
 
+# The LiDAR SLAM main path: the winter season of tools/slam_scale_test.py at
+# full width (2000 scans x 1024 points, a 20-scan local map, 15 ICP
+# iterations), through run_slam
+SLAM_SCANS, SLAM_PTS, SLAM_LAPS = 2000, 1024, 2.0
+SLAM_KW = dict(loop_min_gap=SLAM_SCANS // 8, sc_thresh=0.35, max_loops=64,
+               sc_max_range=50.0, local_map_scans=20, icp_iters=15)
+# K4 against its plain version: (a) the two-lap graph of the JAX package's
+# tests/test_pgo.py (240 poses, 4 valid + 2 invalid loops) host-reduced;
+# (b) the fused route's padded reduction at the tool's shape (2000 poses,
+# 64 loop slots of which 56 valid: Kr = 2 + 2 * 64 = 130, N = 390, the
+# padded copies of the last pose included); (c) (a) with no valid loop,
+# padded.  The kernel's float32 Gauss-Jordan without pivoting and the plain
+# version's pivoted LU (in float32 and in float64) agree by tolerance: the
+# JAX package's own two reduced solvers differ by 6.5e-5 on (a) and its
+# test allows 1e-2.
+PGO_ITERS = 15
+PGO_ATOL = 1e-3
+PGO_TOOL_SHAPE = (2000, 64, 56)        # poses, loop slots, valid loops
+# Operations of one K4 iteration, counted from csrc/pgo.cu's arithmetic
+# (a multiply, an add, a divide, a floor, a sine or cosine count one each),
+# each product once: an edge's residual and Jacobians 20, its three
+# distinct 3 x 3 blocks w A^T B 63 each (H_ji is H_ij's transpose), its two
+# gradients w A^T r 21 each — the kernel evaluates an edge at both of its
+# ends, the function needs it once; 9 a pose (damping, prior, update); and
+# the least a dense direct solve of the SPD system takes (Cholesky N^3 / 3
+# and two triangular solves 2 N^2, N = 3K).
+OPS_PGO_EDGE = 20 + 3 * 63 + 2 * 21
+OPS_PGO_POSE = 9
+# The SLAM fixture (tests/data/torch_slam_fixture.npz: the same session cut
+# to 401 scans x 128 points, JAX on the CPU).  ICP is a chain of argmins:
+# two map points at nearly one distance can swap between two builds, and
+# from that scan on the open chains differ (tests/test_torch_slam_slice.py;
+# on the CPU at scan 95, a near-tie of the ninth iteration's neighbours).
+# The open chain and RMSEs are held within FIX_SLAM_ATOL up to that first
+# flip, which must come after FIX_SLAM_MIN_FLIP scans (a fault, not
+# rounding, diverges at once); the loop pairs and the detector's flags
+# equal.  The forest's FPFH descriptors are near-identical (alike trunks), so
+# many points share one correspondence and an eighth of the RANSAC's 3-point
+# samples have a cross-covariance of rank <= 1, whose Kabsch rotation is
+# whatever the SVD routine returns (tools/torch_ransac_probe.py): where such
+# a sample wins or loses the consensus, the RANSAC result, and with it the
+# accept flag, differs between two SVD routines.  Each candidate whose RANSAC transform agrees
+# with the one JAX recorded is held to JAX's accept flag and measurement
+# (within FIX_SLAM_ATOL); each other one through the port's own second half
+# of the registration (registration.refine_and_gate) from JAX's RANSAC
+# result, which must give JAX's flag and measurement; an accept flag may
+# differ from JAX's only on a candidate of the second kind, and on at most
+# FIX_SLAM_MAX_FLIP_SHARE of the detected candidates (the share of loop
+# measurements that tests/test_torch_slam_slice.py lets differ).
+# The PGO on the fixture's own graph, and K4 on its reduced graph, within
+# FIX_SLAM_ATOL of JAX's solutions.
+FIX_SLAM_ATOL = 1e-3
+FIX_SLAM_MAX_FLIP_SHARE = 0.1
+FIX_SLAM_MIN_FLIP = 20
+
 
 class SmokeError(RuntimeError):
     pass
@@ -203,29 +283,35 @@ def time_cuda(fn, reps):
 def reset_counts():
     from nclt_slam_tpu_torch.ops import ba as ops_ba
     from nclt_slam_tpu_torch.ops import hamming as hm
+    from nclt_slam_tpu_torch.ops import pgo as ops_pgo
     from nclt_slam_tpu_torch.ops import wavefront as wf
     wf.wavefront_relax.launches = 0
     hm.reset_launches()
     ops_ba.reset_launches()
+    ops_pgo.reset_launches()
 
 
 def read_counts():
     from nclt_slam_tpu_torch.ops import ba as ops_ba
     from nclt_slam_tpu_torch.ops import hamming as hm
+    from nclt_slam_tpu_torch.ops import pgo as ops_pgo
     from nclt_slam_tpu_torch.ops import wavefront as wf
     return dict(k2=wf.wavefront_relax.launches, k1=hm.cross_check.launches,
                 k1_sites=dict(hm.cross_check.site_launches),
                 k3=ops_ba.solve_ba_cuda.launches,
-                k3_sites=dict(ops_ba.solve_ba_cuda.site_launches))
+                k3_sites=dict(ops_ba.solve_ba_cuda.site_launches),
+                k4=ops_pgo.optimize_pgo_cuda.launches,
+                k4_sites=dict(ops_pgo.optimize_pgo_cuda.site_launches))
 
 
 def build_phase():
     """Build every kernel, one nvcc per source, all at once."""
     from nclt_slam_tpu_torch.ops import ba as ops_ba
     from nclt_slam_tpu_torch.ops import hamming as hm
+    from nclt_slam_tpu_torch.ops import pgo as ops_pgo
     from nclt_slam_tpu_torch.ops import wavefront as wf
 
-    mods = (wf, hm, ops_ba)
+    mods = (wf, hm, ops_ba, ops_pgo)
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(mods)) as ex:
         libs = list(ex.map(lambda m: m.build_library(), mods))
@@ -589,6 +675,486 @@ def ba_phase(dev):
     sweep = [timed("sweep", bench_windows(B, K, P, dev), B, K, P, iters, 10)
              for B, K, P, iters in BA_SWEEP]
     return dict(checks=rows, rollout=rollout, bench=bench, sweep=sweep)
+
+
+def two_lap_graph(K: int = 240, seed: int = 3, n_loops: int = 4,
+                  n_slots: int | None = None, spacing: int = 30):
+    """The two-lap pose graph of the JAX package's ``tests/test_pgo.py``
+    (noisy, biased odometry around a circle of radius 20 m, exact loop
+    measurements), as numpy with the same draws in the same order; loop e
+    joins pose 5 + e * spacing to the one half the session later.  Returns
+    (PoseGraph2D of numpy arrays, ground truth (K, 3))."""
+    import numpy as np
+    from nclt_slam_tpu_torch.datasets.slam.loop_closure import PoseGraph2D
+
+    rng = np.random.RandomState(seed)
+    th_gt = np.linspace(0, 4 * np.pi, K)
+    gt = np.stack([20.0 * np.cos(th_gt), 20.0 * np.sin(th_gt),
+                   th_gt + np.pi / 2], -1)
+    odo = []
+    for k in range(K - 1):
+        c, s = np.cos(gt[k, 2]), np.sin(gt[k, 2])
+        d = gt[k + 1, :2] - gt[k, :2]
+        m = np.array([c * d[0] + s * d[1], -s * d[0] + c * d[1],
+                      gt[k + 1, 2] - gt[k, 2]])
+        m[:2] += rng.normal(0, 0.02, 2) + 0.004
+        m[2] += rng.normal(0, 0.002)
+        odo.append(m)
+    odo = np.asarray(odo, np.float32)
+    poses = np.zeros((K, 3), np.float32)
+    poses[0] = gt[0]
+    for k in range(K - 1):
+        c, s = np.cos(poses[k, 2]), np.sin(poses[k, 2])
+        poses[k + 1] = (poses[k, 0] + c * odo[k, 0] - s * odo[k, 1],
+                        poses[k, 1] + s * odo[k, 0] + c * odo[k, 1],
+                        poses[k, 2] + odo[k, 2])
+    L = n_loops + 2 if n_slots is None else n_slots
+    li, lj = np.zeros(L, np.int32), np.zeros(L, np.int32)
+    lv, lm = np.zeros(L, bool), np.zeros((L, 3), np.float32)
+    for e in range(n_loops):
+        i = 5 + e * spacing
+        j = min(i + K // 2, K - 1)
+        li[e], lj[e], lv[e] = i, j, True
+        c, s = np.cos(gt[i, 2]), np.sin(gt[i, 2])
+        d = gt[j, :2] - gt[i, :2]
+        lm[e] = (c * d[0] + s * d[1], -s * d[0] + c * d[1],
+                 gt[j, 2] - gt[i, 2])
+    return PoseGraph2D(poses, odo, li, lj, lm, lv), gt
+
+
+def pgo_graphs(dev):
+    """K4's three check graphs on ``dev``: name -> (reduced PoseGraph2D,
+    chain weights)."""
+    import torch
+    from nclt_slam_tpu_torch.datasets.slam import loop_closure as lc
+
+    def on(graph):
+        return lc.PoseGraph2D(*(torch.from_numpy(a).to(dev) for a in graph))
+
+    two_lap = on(two_lap_graph()[0])
+    K, L, V = PGO_TOOL_SHAPE
+    tool = on(two_lap_graph(K=K, n_loops=V, n_slots=L, spacing=17)[0])
+    none = two_lap._replace(loop_valid=torch.zeros_like(two_lap.loop_valid))
+    return {"two_lap": lc.reduce_pose_graph(two_lap, 1.0)[:2],
+            "tool_shape": lc.reduce_pose_graph_padded(tool, 1.0)[:2],
+            "no_valid_loop": lc.reduce_pose_graph_padded(none, 1.0)[:2]}
+
+
+def pgo_bound(graph, iters):
+    """(ms, what bounds it) for one K4 solve of ``graph``: every input read
+    once, the poses written once, and the operations of csrc/pgo.cu's
+    Gauss-Newton with the least dense direct solve (see OPS_PGO_EDGE)."""
+    K, L = graph.poses.shape[0], graph.loop_i.shape[0]
+    N = 3 * K
+    n_edges = K - 1 + int(graph.loop_valid.sum())
+    ops = (n_edges * OPS_PGO_EDGE + K * OPS_PGO_POSE
+           + N ** 3 / 3 + 2 * N * N)
+    n_bytes = 4 * (3 * K + 4 * (K - 1) + 6 * L) + 12 * K
+    return bound_ms(n_bytes, ops * iters)
+
+
+def pgo_phase(dev):
+    """K4 against its plain version (float32 and float64) on graphs (a) to
+    (c), two runs bit-equal; times at the tool's shape."""
+    import torch
+    from nclt_slam_tpu_torch.datasets.slam import loop_closure as lc
+
+    graphs = pgo_graphs(dev)
+    rows = {}
+    for name, (graph, w) in graphs.items():
+        out = lc.optimize_pgo(graph, w, iters=PGO_ITERS, site="check")
+        again = lc.optimize_pgo(graph, w, iters=PGO_ITERS, site="check")
+        ref32 = lc.optimize_pgo_plain(graph, w, iters=PGO_ITERS)
+        g64 = graph._replace(poses=graph.poses.double(),
+                             odo_meas=graph.odo_meas.double(),
+                             loop_meas=graph.loop_meas.double())
+        ref64 = lc.optimize_pgo_plain(g64, w.double(), iters=PGO_ITERS)
+        torch.cuda.synchronize()
+        check(torch.isfinite(out).all().item(), f"K4 {name}: non-finite")
+        check(torch.equal(out, again), f"K4 {name}: two runs differ")
+        e32 = (out - ref32).abs().max().item()
+        e64 = (out.double() - ref64).abs().max().item()
+        check(e32 <= PGO_ATOL and e64 <= PGO_ATOL,
+              f"K4 differs from its plain version on {name}: {e32} "
+              f"(float32), {e64} (float64) > {PGO_ATOL}")
+        shape = [graph.poses.shape[0], graph.loop_i.shape[0],
+                 int(graph.loop_valid.sum())]
+        rows[name] = dict(shape=shape, max_abs_err=max(e32, e64),
+                          err_plain_f32=e32, err_plain_f64=e64,
+                          moved=(out - graph.poses).abs().max().item())
+        print(f"K4 {name} (Kr, L, valid) {shape}: within tolerance of "
+              f"plain (float32 {e32:.2e}, float64 {e64:.2e}), bit-equal "
+              f"runs, poses moved up to {rows[name]['moved']:.3f}",
+              flush=True)
+    check(rows["no_valid_loop"]["moved"] < 0.05,
+          "K4 moved the poses of a graph with no valid loop")
+
+    graph, w = graphs["tool_shape"]
+    ms = time_cuda(lambda: lc.optimize_pgo(graph, w, iters=PGO_ITERS,
+                                           site="check"), 10)
+    plain_ms = time_cuda(lambda: lc.optimize_pgo_plain(graph, w,
+                                                       iters=PGO_ITERS), 3)
+    ei, ej, meas, wts = lc._edges(graph, w, 10.0)
+    H, g = lc._normal_equations(graph.poses, graph.poses[0], ei, ej, meas,
+                                wts, 1e4, 1e-3, lc._wrap_floor)
+    solve_ms = time_cuda(lambda: [torch.linalg.solve(H, g)
+                                  for _ in range(PGO_ITERS)], 10)
+    b_ms, b_by = pgo_bound(graph, PGO_ITERS)
+    timed = dict(shape=rows["tool_shape"]["shape"], iters=PGO_ITERS, ms=ms,
+                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                 linalg_solve_x15_ms=solve_ms)
+    print(f"K4 tool shape {timed['shape']} x{PGO_ITERS}: kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by}); "
+          f"torch.linalg.solve of its {3 * graph.poses.shape[0]}-unknown "
+          f"system x{PGO_ITERS}: {solve_ms:.3f} ms", flush=True)
+    return dict(checks=rows, timed=timed)
+
+
+@contextlib.contextmanager
+def keep_results(module, names):
+    """While the block runs, each ``module.<name>`` records its first
+    argument and its result in the yielded dict (``run_slam`` looks both
+    names up at each call)."""
+    seen = {}
+    inner = {n: getattr(module, n) for n in names}
+
+    def wrap(n):
+        def f(*a, **kw):
+            out = inner[n](*a, **kw)
+            seen[n] = (a[0], out)
+            return out
+        return f
+
+    for n in names:
+        setattr(module, n, wrap(n))
+    try:
+        yield seen
+    finally:
+        for n in names:
+            setattr(module, n, inner[n])
+
+
+def slam_tool():
+    sys.path.insert(0, str(REPO / "tools"))
+    import torch_slam_scale_test
+    return torch_slam_scale_test
+
+
+def rank_le_1(src, Q, corr_ok, picks):
+    """For each 3-point RANSAC sample, whether its weighted cross-covariance
+    (``_kabsch_weighted``'s H, in float64) has rank <= 1: two or three of
+    its correspondences share one point, and the rotation is whatever the
+    SVD routine returns."""
+    import torch
+    P3, Q3 = src[picks].double(), Q[picks].double()
+    w = (corr_ok[picks].double() + 1e-3)[..., None]
+    mp = (P3 * w).sum(1, keepdim=True) / w.sum(1, keepdim=True)
+    mq = (Q3 * w).sum(1, keepdim=True) / w.sum(1, keepdim=True)
+    sv = torch.linalg.svdvals(((P3 - mp) * w).transpose(1, 2) @ (Q3 - mq))
+    return sv[:, 1] <= 1e-6 * sv[:, 0]
+
+
+def registration_replay(fx, scans, valid, dev):
+    """The registrations of the fixture's detected candidates on the card,
+    against the RANSAC stage that JAX recorded for each (``run_slam``'s
+    keys: ``PRNGKey(0)`` split once per candidate).  A candidate whose
+    RANSAC transform here is within FIX_SLAM_ATOL of JAX's is "same"; for
+    every other, ``refine_and_gate`` runs from JAX's RANSAC result and must
+    reproduce JAX's accept flag and measurement, and the stage where the
+    card first leaves the port's own CPU run of the same candidate is
+    recorded: the FPFH features (beyond 1e-4), the feature correspondences,
+    or the hypotheses (how many rotations differ, and how many of those
+    come from a sample of rank <= 1)."""
+    import numpy as np
+    import torch
+    from nclt_slam_tpu_torch.core import prng
+    from nclt_slam_tpu_torch.datasets.slam import registration as reg
+
+    def on(d, *arrays):
+        return [torch.from_numpy(np.array(a)).to(d) for a in arrays]
+
+    def ransac_gap(R0, t0, e):
+        return max((R0.cpu() - torch.from_numpy(fx["ransac_R"][e]))
+                   .abs().max().item(),
+                   (t0.cpu() - torch.from_numpy(fx["ransac_t"][e]))
+                   .abs().max().item())
+
+    key = prng.PRNGKey(0, dev)
+    same, differ, refined_bad, stages = [], [], [], {}
+    for e in np.flatnonzero(fx["detected"]):
+        key, k = prng.split(key).unbind(0)
+        i, j = int(fx["loop_i"][e]), int(fx["loop_j"][e])
+        args = on(dev, scans[j], valid[j], scans[i], valid[i])
+        R0, t0, _, _ = reg.ransac_registration(*args, k)
+        if ransac_gap(R0, t0, e) <= FIX_SLAM_ATOL:
+            same.append(int(e))
+            continue
+        differ.append(int(e))
+        res = reg.refine_and_gate(
+            *args, *on(dev, fx["ransac_R"][e], fx["ransac_t"][e],
+                       fx["ransac_n"][e], fx["ransac_ok"][e]))
+        ok = bool(res.ok.item())
+        R, t = res.R.cpu().numpy(), res.t.cpu().numpy()
+        m = np.array([t[0], t[1], np.arctan2(R[1, 0], R[0, 0])])
+        if ok != bool(fx["found"][e]) or (
+                ok and np.abs(m - fx["loop_meas"][e]).max() > FIX_SLAM_ATOL):
+            refined_bad.append(int(e))
+        # where the card leaves the port's CPU run of this candidate
+        cpu = on("cpu", scans[j], valid[j], scans[i], valid[i])
+        f_gap = max((reg.fpfh(*args[m:m + 2]).cpu()
+                     - reg.fpfh(*cpu[m:m + 2])).abs().max().item()
+                    for m in (0, 2))
+        runs = []
+        for a, kk in ((args, k), (cpu, k.cpu())):
+            corr, corr_ok = reg.fpfh_correspondences(*a)
+            runs.append((corr.cpu(), corr_ok.cpu()) + tuple(
+                x.cpu() for x in reg.ransac_hypotheses(
+                    a[0], a[2][corr], corr_ok, kk)))
+        (corr, corr_ok, Rs, ts, counts, _), \
+            (corr_c, ok_c, Rs_c, ts_c, counts_c, picks) = runs
+        h_differ = (Rs - Rs_c).abs().amax((1, 2)) > FIX_SLAM_ATOL
+        degenerate = rank_le_1(cpu[0], cpu[2][corr_c], ok_c, picks)
+        best, best_c = int(counts.argmax()), int(counts_c.argmax())
+        stages[int(e)] = dict(
+            stage="features" if f_gap > 1e-4 else "correspondences" if
+            bool(((corr != corr_c) | (corr_ok != ok_c)).any()) else
+            "hypotheses",
+            fpfh_gap=f_gap,
+            correspondences_differ=int(((corr != corr_c)
+                                        | (corr_ok != ok_c)).sum()),
+            hypotheses_differ=int(h_differ.sum()),
+            of_them_rank_le_1=int((h_differ & degenerate).sum()),
+            best_card_cpu=[best, best_c],
+            best_rank_le_1=[bool(degenerate[best]), bool(degenerate[best_c])],
+            cpu_ransac_is_jax=ransac_gap(Rs_c[best_c], ts_c[best_c], e)
+            <= FIX_SLAM_ATOL)
+    rows = stages.values()
+    summary = dict(
+        stages={n: sum(r["stage"] == n for r in rows) for n in
+                ("features", "correspondences", "hypotheses")},
+        hypotheses_differ=sum(r["hypotheses_differ"] for r in rows),
+        of_them_rank_le_1=sum(r["of_them_rank_le_1"] for r in rows),
+        best_rank_le_1_on_card=sum(r["best_rank_le_1"][0] for r in rows))
+    return dict(ransac_same=same, ransac_differ=differ,
+                refined_from_jax_ransac_differ=refined_bad,
+                ransac_differ_summary=summary, ransac_differ_stage=stages)
+
+
+def slam_fixture_phase(dev):
+    """Replay the JAX reference SLAM session (401 scans x 128 points) on
+    the card through run_slam and compare; K4 on the fixture's own graph."""
+    import ast
+    import numpy as np
+    import torch
+    from nclt_slam_tpu_torch.datasets.slam import loop_closure as lc
+    from nclt_slam_tpu_torch.datasets.slam import pipeline
+
+    tool = slam_tool()
+    fx = np.load(SLAM_FIXTURE)
+    T, P = int(fx["scans"]), int(fx["pts"])
+    noise = dict(tool.SEASONS)[str(fx["season"])]
+    check((int(fx["world_seed"]), int(fx["scan_seed"])) == (11, 17),
+          "the SLAM fixture's seeds are not the tool's")
+    scans, valid, odom, xy, km = tool.season_session(T, float(fx["laps"]),
+                                                     P, noise)
+    check(tool.slam_checksum(scans, valid, odom) == str(fx["checksum"]),
+          "the regenerated SLAM session differs from the fixture's")
+    kw = ast.literal_eval(str(fx["run_kw"]))
+    with keep_results(pipeline, ("detect_loops_scalable",
+                                 "optimize_pose_graph_fast")) as seen:
+        out = pipeline.run_slam(scans, valid, odom_pred=odom, device=dev,
+                                **kw)
+    detected = seen["detect_loops_scalable"][1][2].cpu().numpy()
+    graph = seen["optimize_pose_graph_fast"][0]
+    li, lj, found = out["loops"]
+    found_ref = fx["found"]
+    meas = graph.loop_meas.cpu().numpy()
+    gap = np.abs(meas - fx["loop_meas"]).max(1)
+    reg = registration_replay(fx, scans, valid, dev)
+    d_open = np.abs(out["poses_open"] - fx["poses_open"]).max(1)
+    d_rmse = np.abs(out["rmses"] - fx["rmses"])
+    over = np.flatnonzero((d_open > FIX_SLAM_ATOL) | (d_rmse > FIX_SLAM_ATOL))
+    first_flip = int(over[0]) if len(over) else None
+    held = first_flip if first_flip is not None else T
+
+    # the PGO on the fixture's own graph (the fused route: one K4 launch),
+    # and K4 on its host-reduced graph
+    fgraph = pipeline.pose_graph(fx["poses_open"], fx["loop_i"],
+                                 fx["loop_j"], fx["loop_meas"], found_ref,
+                                 dev)
+    before = read_counts()["k4_sites"].get("fused", 0)
+    opt = lc.optimize_pose_graph_fast(fgraph, iters=PGO_ITERS)
+    k4_fused = read_counts()["k4_sites"].get("fused", 0) - before
+    reduced, red_w, junctions = lc.reduce_pose_graph(fgraph, 1.0)
+    red = lc.optimize_pgo(reduced, red_w, iters=PGO_ITERS, site="check")
+    torch.cuda.synchronize()
+    opt_err = float(np.abs(opt.cpu().numpy() - fx["poses_optimized"]).max())
+    red = red.cpu().numpy()
+    red_dense_err = float(np.abs(red - fx["red_dense"]).max())
+    red_k4_err = float(np.abs(red - fx["red_k4_interpret"]).max())
+    report = dict(
+        scans=T, pts=P, loops_detected=int(detected.sum()),
+        loops_accepted=int(np.asarray(found).sum()),
+        loops_accepted_ref=int(found_ref.sum()),
+        loop_pairs_equal=bool(np.array_equal(li, fx["loop_i"])
+                              and np.array_equal(lj, fx["loop_j"])),
+        found_equal=bool(np.array_equal(found, found_ref)),
+        detected_equal=bool(np.array_equal(detected, fx["detected"])),
+        accept_flips=np.flatnonzero(found != found_ref).tolist(),
+        loop_meas_beyond_atol=np.flatnonzero(
+            found & found_ref & (gap > FIX_SLAM_ATOL)).tolist(),
+        **reg,
+        open_first_flip_scan=first_flip,
+        open_max_err_before_flip=float(d_open[:held].max()),
+        rmse_max_err_before_flip=float(d_rmse[:held].max()),
+        open_max_err=float(d_open.max()),
+        pgo_on_fixture_graph_max_err_m=opt_err, pgo_k4_fused_launches=k4_fused,
+        junctions_equal=bool(np.array_equal(junctions, fx["junctions"])),
+        k4_reduced_vs_jax_dense=red_dense_err,
+        k4_reduced_vs_jax_interpret=red_k4_err,
+        optimized_finite=bool(np.isfinite(out["poses_optimized"]).all()))
+    print("slam_fixture " + json.dumps(report), flush=True)
+    check(report["loop_pairs_equal"] and report["detected_equal"],
+          "SLAM loop pairs or detector flags differ from the fixture")
+    # every loop whose RANSAC stage agrees with JAX's is accepted alike and
+    # measured within the tolerance; every other is held through the port's
+    # refine_and_gate from JAX's own RANSAC result; a flag flips only there,
+    # and on few candidates
+    same = np.zeros_like(found_ref)
+    same[reg["ransac_same"]] = True
+    agree = (found == found_ref) & (~found_ref | (gap <= FIX_SLAM_ATOL))
+    check(agree[same].all(), f"loops with JAX's RANSAC result differ in "
+          f"their accept flag or measurement: "
+          f"{np.flatnonzero(same & ~agree).tolist()}")
+    check(not reg["refined_from_jax_ransac_differ"],
+          f"refine_and_gate from JAX's RANSAC result differs from JAX's "
+          f"registration: {reg['refined_from_jax_ransac_differ']}")
+    flips = report["accept_flips"]
+    check(set(flips) <= set(reg["ransac_differ"])
+          and len(flips) <= FIX_SLAM_MAX_FLIP_SHARE * detected.sum(),
+          f"accept flags differ from JAX's at {flips}: beyond the "
+          f"candidates whose RANSAC differs {reg['ransac_differ']} or more "
+          f"than {FIX_SLAM_MAX_FLIP_SHARE:.0%} of the {int(detected.sum())} "
+          f"candidates")
+    check(first_flip is None or first_flip >= FIX_SLAM_MIN_FLIP,
+          f"the open chain left the fixture at scan {first_flip}")
+    check(opt_err <= FIX_SLAM_ATOL and k4_fused == 1,
+          f"the PGO on the fixture's graph is {opt_err} m from JAX's "
+          f"({k4_fused} K4 launches)")
+    check(report["junctions_equal"] and red_dense_err <= FIX_SLAM_ATOL
+          and red_k4_err <= FIX_SLAM_ATOL,
+          f"K4 on the fixture's reduced graph: {red_dense_err} / "
+          f"{red_k4_err} from JAX's dense / interpret-mode solutions")
+    check(report["optimized_finite"], "non-finite optimized poses")
+    return report
+
+
+def icp_cost(scans, valid, dev):
+    """The ICP's parts at full width: the nearest-neighbour step of 1024
+    points against a 20-scan (20,480-point) map, the weighted Kabsch with
+    its 3 x 3 SVD (and whether that synchronizes the host), one whole
+    15-iteration ICP."""
+    import warnings
+    import torch
+    from nclt_slam_tpu_torch.datasets.slam import icp
+
+    S = SLAM_KW["local_map_scans"]
+    src = torch.from_numpy(scans[S]).to(dev)
+    sv = torch.from_numpy(valid[S]).to(dev)
+    dst = torch.from_numpy(scans[:S].reshape(-1, 3)).to(dev)
+    dv = torch.from_numpy(valid[:S].reshape(-1)).to(dev)
+    idx, dist = icp._nearest(src, dst, dv)
+    w = (sv & (dist < 1.0)).float()
+    nearest_ms = time_cuda(lambda: icp._nearest(src, dst, dv), 20)
+    kabsch_ms = time_cuda(lambda: icp._kabsch_weighted(src, dst[idx], w), 50)
+    icp_ms = time_cuda(lambda: icp.icp_point_to_point(
+        src, sv, dst, dv, iters=SLAM_KW["icp_iters"]), 5)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            icp._kabsch_weighted(src, dst[idx], w)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(c.message) for c in caught)
+    return dict(nearest_ms=nearest_ms, kabsch_ms=kabsch_ms,
+                icp_15_iters_ms=icp_ms,
+                icp_ms_per_iter=icp_ms / SLAM_KW["icp_iters"],
+                kabsch_host_syncs=syncs)
+
+
+def slam_main_path_phase(dev, card):
+    """The winter session of the SLAM scale tool at full width through
+    run_slam: K4 launched once, from the fused PGO."""
+    import numpy as np
+    import torch
+    from nclt_slam_tpu_torch.datasets.slam import pipeline
+
+    tool = slam_tool()
+    name, noise = tool.SEASONS[0]
+    t0 = time.perf_counter()
+    scans, valid, odom, xy, km = tool.season_session(
+        SLAM_SCANS, SLAM_LAPS, SLAM_PTS, noise)
+    gen_s = time.perf_counter() - t0
+    cost = icp_cost(scans, valid, dev)
+    torch.cuda.synchronize()
+
+    reset_counts()
+    stage_s = {}
+    t0 = time.perf_counter()
+    out = pipeline.run_slam(scans, valid, odom_pred=odom, device=dev,
+                            stage_s=stage_s, **SLAM_KW)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+
+    row = tool.ladder_row(name, noise, out, xy, km, wall, card)
+    check(counts["k4"] == 1 and counts["k4_sites"] == {"fused": 1},
+          f"the SLAM path launched K4 {counts['k4_sites']}, expected once "
+          f"from the fused PGO")
+    check(np.isfinite(out["poses_open"]).all()
+          and np.isfinite(out["poses_optimized"]).all(),
+          "non-finite SLAM poses")
+    check(row["loops_accepted"] >= 1, "the SLAM path accepted no loop")
+    check(row["ate_optimized_m"] <= row["ate_open_m"],
+          f"the optimized ATE {row['ate_optimized_m']} m is worse than the "
+          f"open {row['ate_open_m']} m")
+    stats = dict(row, scans=SLAM_SCANS, pts=SLAM_PTS, path_km=float(km),
+                 session_generation_s=gen_s, launches=counts,
+                 loops_detected_slots=len(out["loops"][0]), icp=cost)
+    for k in pipeline.STAGES:
+        print(f"slam stage {k}: {stage_s[k]:.3f} s", flush=True)
+    print(f"slam: {SLAM_SCANS} scans in {wall:.2f} s, "
+          f"{SLAM_SCANS / wall:.1f} scans/s ({card})", flush=True)
+    print(f"| {name} | {noise['jitter']} | {noise['dropout']} | "
+          f"{row['ate_open_m']:.3f} m | {row['ate_optimized_m']:.3f} m | "
+          f"{row['loops_accepted']} | {row['icp_rmse_mean']:.4f} | "
+          f"{wall:.1f} s |", flush=True)
+    print("slam_main_path " + json.dumps(stats), flush=True)
+    return stats
+
+
+def slam_profile_phase(dev):
+    """One full-width 15-iteration ICP under the profiler: kernel launches
+    an ICP iteration and the device's busy share."""
+    import torch
+    from nclt_slam_tpu_torch.datasets.slam import icp
+
+    tool = slam_tool()
+    scans, valid, _, _, _ = tool.season_session(
+        SLAM_KW["local_map_scans"] + 1, SLAM_LAPS, SLAM_PTS,
+        tool.SEASONS[0][1])
+    S = SLAM_KW["local_map_scans"]
+    args = [torch.from_numpy(a).to(dev) for a in
+            (scans[S], valid[S], scans[:S].reshape(-1, 3),
+             valid[:S].reshape(-1))]
+    iters = SLAM_KW["icp_iters"]
+    launches, busy_s, wall = profile_window(
+        lambda: icp.icp_point_to_point(*args, iters=iters))
+    stats = dict(icp_iters=iters, launches_per_icp_iter=launches / iters,
+                 profiled_ms=wall * 1e3, device_busy_share=busy_s / wall)
+    print("slam_profile " + json.dumps(stats), flush=True)
+    return stats
 
 
 def divergence(a, b):
@@ -1275,7 +1841,8 @@ def run() -> int:
         return 2
     csrc = REPO / "nclt_slam_tpu_torch" / "csrc"
     if not all((csrc / f).is_file() for f in
-               ("wavefront.cu", "hamming.cu", "ba.cu", "gauss_jordan.cuh")):
+               ("wavefront.cu", "hamming.cu", "ba.cu", "pgo.cu",
+                "gauss_jordan.cuh")):
         print(f"chip_smoke: no nclt_slam_tpu_torch checkout beside {__file__}",
               file=sys.stderr)
         return 2
@@ -1297,12 +1864,16 @@ def run() -> int:
     k2_rows = kernel_phase(dev)
     k1_rows = hamming_phase(dev)
     k3 = ba_phase(dev)
+    k4 = pgo_phase(dev)
     fixture_phase(dev)
     rgbd_ba_fixture_phase(ours_fixture_phase(dev), dev)
+    slam_fixture_phase(dev)
     gt = main_path_phase(dev)
     ours, shared, ours_carry = ours_main_path_phase(dev)
     rgbd_ba = rgbd_ba_main_path_phase(shared, dev)
+    slam = slam_main_path_phase(dev, card)
     ours_profile_phase(shared, ours_carry)
+    slam_profile_phase(dev)
 
     window, coarse = k2_rows
     vio_row, _, matcher_row = k1_rows
@@ -1371,6 +1942,24 @@ def run() -> int:
             "bench_bound_ms": k3["bench"]["bound_ms"],
             "bench_solves_per_s": k3["bench"]["solves_per_s"],
             "sweep": k3["sweep"],
+        },
+        {
+            "name": "optimize_pgo",
+            "route": "cuda",
+            "source": "nclt_slam_tpu_torch/csrc/pgo.cu",
+            "replaces": "nclt_slam_tpu/ops/pgo_pallas.py:45",
+            "launches": slam["launches"]["k4"],
+            "max_abs_err": max(row["max_abs_err"]
+                               for row in k4["checks"].values()),
+            "ms": k4["timed"]["ms"],
+            "plain_ms": k4["timed"]["plain_ms"],
+            "bound_ms": k4["timed"]["bound_ms"],
+            "bound_by": k4["timed"]["bound_by"],
+            "library_ms": None,
+            "shape": k4["timed"]["shape"],
+            "launches_by_site": slam["launches"]["k4_sites"],
+            "linalg_solve_x15_ms": k4["timed"]["linalg_solve_x15_ms"],
+            "checks": k4["checks"],
         }]}
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)

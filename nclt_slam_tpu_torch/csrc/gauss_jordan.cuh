@@ -1,19 +1,22 @@
 // Dense Gauss-Jordan solve of a damped symmetric positive definite system by
-// one thread block, in shared memory.
+// one thread block.  The augmented matrix may lie in shared memory (the BA
+// kernel's reduced system) or in device memory (the pose-graph kernel's,
+// which is too large for one block's shared memory).
 //
 // Shared by the solvers that the JAX package's Pallas TPU kernels run in
 // their own bodies (nclt_slam_tpu/ops/ba_pallas.py:_gauss_jordan, which
 // nclt_slam_tpu/ops/pgo_pallas.py imports): n pivot steps without pivoting,
 // each one rank-1 update of the augmented matrix.  The TPU version extracts
 // the pivot row and column by masked reductions because Mosaic has no
-// dynamic slice of a value; here they are indexed reads of shared memory.
+// dynamic slice of a value; here they are indexed reads.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
 // Solves S x = rhs in place.  aug is the n x (n + 1) augmented matrix
-// [S | rhs] with row stride ld (>= n + 1) in shared memory; on return its
+// [S | rhs] with row stride ld (>= n + 1), in shared or device memory
+// (__syncthreads orders both for the block); on return its
 // last column holds x and the rest is overwritten.  col (n floats) and row
 // (n + 1 floats) are shared scratch.  Every thread of the block calls it
 // with the same arguments; blockDim.x is a multiple of 32.  A pivot of

@@ -1,6 +1,7 @@
 """Metric engine — port of the reference's thesis metrics (the campaign
 half of ``nclt_slam_tpu/eval/metrics.py`` and its 2-D Procrustes
-alignments, copied as numpy; ATE/RPE come with the slices that use them).
+alignments, copied as numpy, and the trajectory errors ATE/RPE of the LiDAR
+SLAM path).
 
 compute_metrics.py semantics, bit-comparable where the inputs align:
 - directional WP coverage: split teach WPs and the GT trace at the
@@ -197,3 +198,39 @@ def procrustes_drift_2d(vio_xyz: np.ndarray, gt_xy: np.ndarray):
         if best is None or err.mean() < best.mean():
             best = err
     return float(best.max()), float(best.mean())
+
+
+# ---------------------------------------------------------------------------
+# trajectory errors (the LiDAR SLAM path's ATE ladder)
+# ---------------------------------------------------------------------------
+
+def align_umeyama_2d(est: np.ndarray, gt: np.ndarray, with_scale=False):
+    """2-D Umeyama alignment est->gt.  Returns (R, t, s)."""
+    mu_e, mu_g = est.mean(0), gt.mean(0)
+    ec, gc = est - mu_e, gt - mu_g
+    cov = gc.T @ ec / len(est)
+    U, D, Vt = np.linalg.svd(cov)
+    S = np.eye(2)
+    if np.linalg.det(U) * np.linalg.det(Vt) < 0:
+        S[1, 1] = -1
+    R = U @ S @ Vt
+    s = float((D * S.diagonal()).sum() / (ec ** 2).sum() * len(est)) \
+        if with_scale else 1.0
+    t = mu_g - s * R @ mu_e
+    return R, t, s
+
+
+def ate_rmse(est: np.ndarray, gt: np.ndarray, with_scale=False) -> float:
+    """Absolute trajectory error RMSE after 2-D (Sim/SE) alignment — the
+    NCLT/RobotCar evaluation metric."""
+    R, t, s = align_umeyama_2d(est, gt, with_scale)
+    aligned = (s * (R @ est.T)).T + t
+    return float(np.sqrt(((aligned - gt) ** 2).sum(-1).mean()))
+
+
+def rpe_rmse(est: np.ndarray, gt: np.ndarray, delta: int = 10) -> float:
+    """Relative pose (translation) error RMSE over ``delta``-step intervals."""
+    e = est[delta:] - est[:-delta]
+    g = gt[delta:] - gt[:-delta]
+    return float(np.sqrt(((np.linalg.norm(e, axis=-1)
+                           - np.linalg.norm(g, axis=-1)) ** 2).mean()))

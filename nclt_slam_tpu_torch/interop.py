@@ -1,7 +1,8 @@
 """State carried across between the JAX package and the port.
 
 ``from_numpy_tree`` turns a tree of the JAX package's state — packed
-scenes and routes, teach and repeat carries, traces, results, PRNG keys —
+scenes and routes, teach and repeat carries, traces, results, PRNG keys,
+the SLAM path's pose graphs, local maps and ICP / registration results —
 into the port's NamedTuples of tensors, matched by type and field name;
 ``to_numpy_tree`` turns the port's state back into numpy.  The leaves are
 numpy arrays (or anything ``np.asarray`` takes, such as a JAX array), so
@@ -25,6 +26,7 @@ import torch
 @functools.lru_cache(maxsize=1)
 def _registry() -> dict:
     from nclt_slam_tpu_torch.control import pure_pursuit, supervisor
+    from nclt_slam_tpu_torch.datasets.slam import icp, loop_closure, registration
     from nclt_slam_tpu_torch.dynamics import diffdrive
     from nclt_slam_tpu_torch.fusion import relay
     from nclt_slam_tpu_torch.landmarks import matcher, store
@@ -44,6 +46,8 @@ def _registry() -> dict:
         drift_monitor.DriftMonitorState, tracker.VioState, tracker.VioAux,
         preintegration.Preintegrated, matcher.AnchorResult,
         campaign.CampaignData, ba.BAProblem, ba.BAResult,
+        loop_closure.PoseGraph2D, icp.ICPResult, icp.LocalMap,
+        registration.RegistrationResult,
     ]
     return {t.__name__: t for t in types}
 

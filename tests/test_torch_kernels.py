@@ -157,3 +157,64 @@ def test_ba_kernel_rejects_unsupported(cuda):
     with pytest.raises(ValueError):
         ba.solve_ba(prob._replace(obs_w=prob.obs_w[:, :, :-1]), cfg.camera,
                     cfg.vio)
+
+
+# K4 against its plain version on chip_smoke.py's three check graphs (the
+# JAX package's two-lap test graph reduced; the fused route's padded graph
+# at the SLAM tool's shape, 130 poses and 64 loop slots; a graph with no
+# valid loop): within 1e-3 (the float32 Gauss-Jordan without pivoting
+# against a pivoted LU, in float32 and float64).
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["two_lap", "tool_shape", "no_valid_loop"])
+def test_pgo_kernel_matches_plain(cuda, name):
+    from nclt_slam_tpu_torch.datasets.slam import loop_closure as lc
+    from nclt_slam_tpu_torch.ops import pgo as ops_pgo
+    from chip_smoke import PGO_ATOL, pgo_graphs
+
+    graph, w = pgo_graphs(cuda)[name]
+    before = ops_pgo.optimize_pgo_cuda.launches
+    got = lc.optimize_pgo(graph, w, iters=15, site="test")
+    again = lc.optimize_pgo(graph, w, iters=15, site="test")
+    torch.cuda.synchronize()
+    assert ops_pgo.optimize_pgo_cuda.launches == before + 2
+    assert torch.isfinite(got).all()
+    # fixed summation order, no atomics: a run repeats bit for bit
+    assert torch.equal(got, again)
+    ref = lc.optimize_pgo_plain(graph, w, iters=15)
+    assert (got - ref).abs().max().item() <= PGO_ATOL
+    g64 = graph._replace(poses=graph.poses.double(),
+                         odo_meas=graph.odo_meas.double(),
+                         loop_meas=graph.loop_meas.double())
+    ref64 = lc.optimize_pgo_plain(g64, w.double(), iters=15)
+    assert (got.double() - ref64).abs().max().item() <= PGO_ATOL
+
+
+@pytest.mark.cuda
+def test_pgo_kernel_launched_once_by_fused_route(cuda):
+    from nclt_slam_tpu_torch.datasets.slam import loop_closure as lc
+    from nclt_slam_tpu_torch.ops import pgo as ops_pgo
+    from chip_smoke import two_lap_graph
+
+    graph = lc.PoseGraph2D(*(torch.from_numpy(a).to(cuda)
+                             for a in two_lap_graph()[0]))
+    ops_pgo.reset_launches()
+    fused = lc.optimize_pose_graph_fast(graph, iters=15)
+    host = lc.optimize_pose_graph_fast(graph, iters=15, backend="xla")
+    torch.cuda.synchronize()
+    assert ops_pgo.optimize_pgo_cuda.site_launches == {"fused": 1, "host": 1}
+    assert fused.device.type == "cuda" and torch.isfinite(fused).all()
+    # the padded copies of the last pose are extra damped unknowns: the two
+    # routes differ transiently, as tests/test_pgo.py allows (0.1)
+    assert (fused - host).abs().max().item() < 0.1
+
+
+@pytest.mark.cuda
+def test_pgo_kernel_rejects_unsupported(cuda):
+    from nclt_slam_tpu_torch.datasets.slam import loop_closure as lc
+    from chip_smoke import pgo_graphs
+
+    graph, w = pgo_graphs(cuda)["two_lap"]
+    with pytest.raises(TypeError):
+        lc.optimize_pgo(graph._replace(poses=graph.poses.double()), w)
+    with pytest.raises(ValueError):
+        lc.optimize_pgo(graph._replace(odo_meas=graph.odo_meas[:-1]), w)

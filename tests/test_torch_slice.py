@@ -295,6 +295,26 @@ def test_port_runs_without_jax():
         "torch.zeros(1, rb.map.rows, rb.map.cols, dtype=torch.int8), "
         "carry.store, rb)\n"
         "assert solves == [1] and torch.isfinite(rt.nav_xy).all()\n"
+        "import numpy as np\n"
+        "sys.path.insert(0, 'tools')\n"
+        "import torch_slam_scale_test as slam_tool\n"
+        "from nclt_slam_tpu_torch.datasets.slam import icp, loop_closure, "
+        "pipeline, registration\n"
+        "from nclt_slam_tpu_torch.ops import pgo\n"
+        "rng = np.random.RandomState(3)\n"
+        "world = slam_tool.build_world(rng, n_trees=160, extent=60.0)\n"
+        "traj = slam_tool.loop_trajectory(40, radius=35.0, laps=1.3)\n"
+        "scans, valid = slam_tool.make_scans(*world, *traj, rng, n_pts=64, "
+        "max_range=30.0)\n"
+        "out = pipeline.run_slam(scans, valid, odom_pred=slam_tool.noisy_odom("
+        "*traj, rng), loop_min_gap=10, sc_thresh=0.4, max_loops=8, "
+        "local_map_scans=10, device='cpu')\n"
+        "assert np.isfinite(out['poses_optimized']).all()\n"
+        "li, lj, found = out['loops']\n"
+        "graph = pipeline.pose_graph(out['poses_open'], li, lj, "
+        "np.zeros((len(li), 3)), found, 'cpu')\n"
+        "fast = loop_closure.optimize_pose_graph_fast(graph, iters=3)\n"
+        "assert fast.shape == (40, 3) and torch.isfinite(fast).all()\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m == 'nclt_slam_tpu' or m.startswith(('jax.', 'jaxlib', 'nclt_slam_tpu.'))]\n"
         "assert not bad, bad\n"

@@ -20,8 +20,19 @@ runners' default seeds:
   GT-stall watchdog — plus ``vio.enable_local_ba``: the sliding-window BA
   every tenth tick), with the keyframe ring and the VIO map it refined.
 
-``chip_smoke.py`` replays the same campaigns on the card and compares.
-The tool writes all three files:
+- ``torch_slam_fixture.npz``: the LiDAR SLAM path, ``run_slam`` on the
+  winter season of ``tools/slam_scale_test.py`` cut to ``SLAM_SCANS`` scans
+  x ``SLAM_PTS`` points (on the tool's two laps, so that revisits fall on
+  the first lap's scan positions and loops are accepted): the generator
+  settings and a checksum of the scans (not the scans), the open and
+  optimized poses, ICP RMSEs, loop pairs, detected and accepted flags, loop
+  measurements, the RANSAC stage of each candidate's registration (the
+  pose graph handed to the PGO is these and the chain's
+  odometry edges), the junctions of its host-reduced graph and JAX's dense
+  and interpret-mode K4 solutions of that.
+
+``chip_smoke.py`` replays the same campaigns and session on the card and
+compares.  The tool writes all four files (``--mode slam``: only the last):
 
     JAX_PLATFORMS=cpu python tools/make_torch_fixture.py
 """
@@ -41,6 +52,7 @@ DATA = REPO / "tests" / "data"
 GT_OUT = DATA / "torch_gt_campaign_fixture.npz"
 OURS_OUT = DATA / "torch_ours_campaign_fixture.npz"
 RGBD_BA_OUT = DATA / "torch_rgbd_ba_campaign_fixture.npz"
+SLAM_OUT = DATA / "torch_slam_fixture.npz"
 ROUTES = ("02_north_forest", "13_cross_nws")
 # two routes whose first landmark block survives the repeat session's
 # appearance death (LandmarkConfig.session_dead_frac), so that anchors
@@ -56,6 +68,95 @@ OURS_REPEAT_TICKS = 150
 RGBD_BA_REPEAT_TICKS = 150
 BA_PERIOD = 10
 MIN_BA_SOLVES = 5
+
+
+# the SLAM session: the scale tool's winter season, cut in scans and points
+SLAM_SCANS = 401
+SLAM_PTS = 128
+SLAM_LAPS = 2.0
+SLAM_WORLD_SEED = 11
+SLAM_SCAN_SEED = 17
+SLAM_KW = dict(loop_min_gap=SLAM_SCANS // 8, sc_thresh=0.35, max_loops=64,
+               sc_max_range=50.0)
+
+
+def write_slam(out: Path):
+    import jax
+
+    sys.path.insert(0, str(REPO / "tools"))
+    import slam_scale_test as tool
+    from torch_slam_scale_test import slam_checksum
+    from nclt_slam_tpu.datasets.slam import loop_closure, pipeline
+    from nclt_slam_tpu.ops.pgo_pallas import optimize_pgo_pallas
+
+    rng = np.random.RandomState(SLAM_WORLD_SEED)
+    world = tool.build_world(rng)
+    xy, yaw = tool.loop_trajectory(SLAM_SCANS, laps=SLAM_LAPS)
+    srng = np.random.RandomState(SLAM_SCAN_SEED)
+    scans, valid = tool.make_scans(*world, xy, yaw, srng, n_pts=SLAM_PTS,
+                                   **tool.SEASONS[0][1])
+    odom = tool.noisy_odom(xy, yaw, srng)
+
+    seen = {}
+    fast = loop_closure.optimize_pose_graph_fast
+
+    def keep_graph(graph, **kw):
+        seen["graph"] = jax.tree_util.tree_map(np.asarray, graph)
+        return fast(graph, **kw)
+
+    loop_closure.optimize_pose_graph_fast = keep_graph
+    try:
+        res = pipeline.run_slam(scans, valid, odom_pred=odom, **SLAM_KW)
+    finally:
+        loop_closure.optimize_pose_graph_fast = fast
+    # the detector's flags before registration (one RANSAC key each), as
+    # run_slam computes them
+    descs = jax.vmap(lambda s, v: loop_closure.scan_context(
+        s, v, max_range=SLAM_KW["sc_max_range"]))(scans, valid)
+    _, _, detected = loop_closure.detect_loops_scalable(
+        descs, res["poses_open"][:, :2], np.ones(SLAM_SCANS, bool),
+        min_gap=SLAM_KW["loop_min_gap"], sc_thresh=SLAM_KW["sc_thresh"],
+        max_loops=SLAM_KW["max_loops"])
+    graph = seen["graph"]
+    li, lj, found = res["loops"]
+    if int(found.sum()) < 10:
+        raise SystemExit(f"only {int(found.sum())} loops accepted")
+    # the RANSAC stage of every detected candidate's registration, with
+    # run_slam's keys (PRNGKey(0), split once per candidate)
+    from nclt_slam_tpu.datasets.slam.registration import ransac_registration
+
+    ransac = jax.jit(ransac_registration)
+    L = len(li)
+    ransac_R = np.zeros((L, 3, 3), np.float32)
+    ransac_t = np.zeros((L, 3), np.float32)
+    ransac_n = np.zeros(L, np.int32)
+    ransac_ok = np.zeros(L, bool)
+    key = jax.random.PRNGKey(0)
+    for e in np.flatnonzero(np.asarray(detected)):
+        key, k = jax.random.split(key)
+        i, j = int(li[e]), int(lj[e])
+        R, t, n, ok = ransac(scans[j], valid[j], scans[i], valid[i], k)
+        ransac_R[e], ransac_t[e], ransac_n[e], ransac_ok[e] = R, t, n, ok
+    reduced, red_w, junctions = loop_closure.reduce_pose_graph(graph, 1.0)
+    dense = loop_closure._optimize_reduced_jit(reduced, red_w, 15, 10.0,
+                                               1e-3)
+    k4 = optimize_pgo_pallas(reduced, red_w, iters=15, interpret=True)
+    np.savez_compressed(
+        out,
+        scans=SLAM_SCANS, pts=SLAM_PTS, laps=SLAM_LAPS,
+        world_seed=SLAM_WORLD_SEED, scan_seed=SLAM_SCAN_SEED,
+        season=np.asarray(tool.SEASONS[0][0]),
+        run_kw=np.asarray(repr(SLAM_KW)),
+        checksum=np.asarray(slam_checksum(scans, valid, odom)),
+        poses_open=res["poses_open"].astype(np.float32),
+        poses_optimized=res["poses_optimized"].astype(np.float32),
+        rmses=np.asarray(res["rmses"], np.float32),
+        loop_i=li, loop_j=lj, found=found,
+        detected=np.asarray(detected),
+        loop_meas=graph.loop_meas, ransac_R=ransac_R, ransac_t=ransac_t,
+        ransac_n=ransac_n, ransac_ok=ransac_ok,
+        junctions=junctions, red_dense=np.asarray(dense),
+        red_k4_interpret=np.asarray(k4))
 
 
 def slice_config(cfg_mod):
@@ -181,6 +282,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--teach-ticks", type=int, default=100)
     ap.add_argument("--repeat-ticks", type=int, default=100)
+    ap.add_argument("--mode", choices=("all", "slam"), default="all",
+                    help="write all four fixtures, or only the SLAM one")
     args = ap.parse_args(argv)
 
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
@@ -192,6 +295,10 @@ def main(argv=None):
     from nclt_slam_tpu.rollout import campaign
 
     DATA.mkdir(parents=True, exist_ok=True)
+    write_slam(SLAM_OUT)
+    print(f"wrote {SLAM_OUT} ({SLAM_OUT.stat().st_size} bytes)")
+    if args.mode == "slam":
+        return
     write_gt(cfg_mod, campaign, args.teach_ticks, args.repeat_ticks, GT_OUT)
     print(f"wrote {GT_OUT} ({GT_OUT.stat().st_size} bytes)")
     shared = ours_teach(cfg_mod, campaign, OURS_TEACH_TICKS)
