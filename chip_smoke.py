@@ -27,11 +27,13 @@ Phases, each of which must pass (any failure exits non-zero):
    the batch benchmark's random windows, at 64 x 16 x 192 x 8 iterations
    and the benchmark's sweep shapes;
 5b. hold the pose-graph kernel (K4) against its plain version in float32
-   and float64 by tolerance on three reduced graphs (the JAX package's
+   and float64 by tolerance on four reduced graphs (the JAX package's
    two-lap test graph; the fused route's padded graph at the SLAM tool's
-   shape, 130 poses and 64 loop slots; a graph with no valid loop), two
-   runs bit-equal; time it at the tool's shape beside 15 calls of
-   ``torch.linalg.solve`` on its 390-unknown system;
+   shape, 130 poses and 64 loop slots; a graph with no valid loop; the
+   padded graph of a 2000-pose session with 256 loop slots, 514 poses),
+   two runs bit-equal; time it at the tool's shape beside 15 calls of
+   ``torch.linalg.solve`` on its 390-unknown system, per Gauss-Newton
+   iteration too;
 6. replay the JAX reference fixture of the GT-localized campaign
    (``tests/data/torch_gt_campaign_fixture.npz``: 2 routes at full width,
    100 teach + 100 repeat ticks) and compare within the tolerances below;
@@ -189,13 +191,16 @@ SLAM_KW = dict(loop_min_gap=SLAM_SCANS // 8, sc_thresh=0.35, max_loops=64,
 # (b) the fused route's padded reduction at the tool's shape (2000 poses,
 # 64 loop slots of which 56 valid: Kr = 2 + 2 * 64 = 130, N = 390, the
 # padded copies of the last pose included); (c) (a) with no valid loop,
-# padded.  The kernel's float32 Gauss-Jordan without pivoting and the plain
-# version's pivoted LU (in float32 and in float64) agree by tolerance: the
-# JAX package's own two reduced solvers differ by 6.5e-5 on (a) and its
-# test allows 1e-2.
+# padded; (d) the padded reduction of a 2000-pose two-lap session with 256
+# loop slots, 200 of them valid (Kr = 514, N = 1542: 49 panels of 32, the
+# last one padded, and the panel in chunks).  The kernel's float32 blocked
+# Cholesky without pivoting and the plain version's pivoted LU (in float32
+# and in float64) agree by tolerance: the JAX package's own two reduced
+# solvers differ by 6.5e-5 on (a) and its test allows 1e-2.
 PGO_ITERS = 15
 PGO_ATOL = 1e-3
 PGO_TOOL_SHAPE = (2000, 64, 56)        # poses, loop slots, valid loops
+PGO_LARGE_SHAPE = (2000, 256, 200, 4)   # and the loops' spacing
 # Operations of one K4 iteration, counted from csrc/pgo.cu's arithmetic
 # (a multiply, an add, a divide, a floor, a sine or cosine count one each),
 # each product once: an edge's residual and Jacobians 20, its three
@@ -723,7 +728,7 @@ def two_lap_graph(K: int = 240, seed: int = 3, n_loops: int = 4,
 
 
 def pgo_graphs(dev):
-    """K4's three check graphs on ``dev``: name -> (reduced PoseGraph2D,
+    """K4's four check graphs on ``dev``: name -> (reduced PoseGraph2D,
     chain weights)."""
     import torch
     from nclt_slam_tpu_torch.datasets.slam import loop_closure as lc
@@ -735,9 +740,12 @@ def pgo_graphs(dev):
     K, L, V = PGO_TOOL_SHAPE
     tool = on(two_lap_graph(K=K, n_loops=V, n_slots=L, spacing=17)[0])
     none = two_lap._replace(loop_valid=torch.zeros_like(two_lap.loop_valid))
+    K, L, V, spacing = PGO_LARGE_SHAPE
+    large = on(two_lap_graph(K=K, n_loops=V, n_slots=L, spacing=spacing)[0])
     return {"two_lap": lc.reduce_pose_graph(two_lap, 1.0)[:2],
             "tool_shape": lc.reduce_pose_graph_padded(tool, 1.0)[:2],
-            "no_valid_loop": lc.reduce_pose_graph_padded(none, 1.0)[:2]}
+            "no_valid_loop": lc.reduce_pose_graph_padded(none, 1.0)[:2],
+            "large": lc.reduce_pose_graph_padded(large, 1.0)[:2]}
 
 
 def pgo_bound(graph, iters):
@@ -755,7 +763,7 @@ def pgo_bound(graph, iters):
 
 def pgo_phase(dev):
     """K4 against its plain version (float32 and float64) on graphs (a) to
-    (c), two runs bit-equal; times at the tool's shape."""
+    (d), two runs bit-equal; times at the tool's shape."""
     import torch
     from nclt_slam_tpu_torch.datasets.slam import loop_closure as lc
 
@@ -802,11 +810,17 @@ def pgo_phase(dev):
     b_ms, b_by = pgo_bound(graph, PGO_ITERS)
     timed = dict(shape=rows["tool_shape"]["shape"], iters=PGO_ITERS, ms=ms,
                  plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                 linalg_solve_x15_ms=solve_ms)
+                 linalg_solve_x15_ms=solve_ms,
+                 ms_per_iter=ms / PGO_ITERS,
+                 linalg_solve_ms=solve_ms / PGO_ITERS,
+                 kernel_over_linalg_solve=ms / solve_ms)
     print(f"K4 tool shape {timed['shape']} x{PGO_ITERS}: kernel {ms:.3f} ms, "
           f"plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by}); "
           f"torch.linalg.solve of its {3 * graph.poses.shape[0]}-unknown "
-          f"system x{PGO_ITERS}: {solve_ms:.3f} ms", flush=True)
+          f"system x{PGO_ITERS}: {solve_ms:.3f} ms; a Gauss-Newton "
+          f"iteration: kernel {ms / PGO_ITERS:.4f} ms, one "
+          f"torch.linalg.solve {solve_ms / PGO_ITERS:.4f} ms, ratio "
+          f"{ms / solve_ms:.3f}", flush=True)
     return dict(checks=rows, timed=timed)
 
 
@@ -1959,6 +1973,10 @@ def run() -> int:
             "shape": k4["timed"]["shape"],
             "launches_by_site": slam["launches"]["k4_sites"],
             "linalg_solve_x15_ms": k4["timed"]["linalg_solve_x15_ms"],
+            "ms_per_iter": k4["timed"]["ms_per_iter"],
+            "linalg_solve_ms": k4["timed"]["linalg_solve_ms"],
+            "kernel_over_linalg_solve":
+                k4["timed"]["kernel_over_linalg_solve"],
             "checks": k4["checks"],
         }]}
     print(f"chip_smoke: all phases passed in "

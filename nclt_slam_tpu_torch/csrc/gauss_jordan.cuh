@@ -1,11 +1,11 @@
 // Dense Gauss-Jordan solve of a damped symmetric positive definite system by
-// one thread block.  The augmented matrix may lie in shared memory (the BA
-// kernel's reduced system) or in device memory (the pose-graph kernel's,
-// which is too large for one block's shared memory).
+// one thread block: the reduced solve of the BA kernel (csrc/ba.cu), whose
+// system lies in shared memory.  The pose-graph kernel (csrc/pgo.cu) solves
+// its larger system by a blocked Cholesky factorisation of its own.
 //
-// Shared by the solvers that the JAX package's Pallas TPU kernels run in
-// their own bodies (nclt_slam_tpu/ops/ba_pallas.py:_gauss_jordan, which
-// nclt_slam_tpu/ops/pgo_pallas.py imports): n pivot steps without pivoting,
+// The solver that the JAX package's Pallas TPU kernels run in their own
+// bodies (nclt_slam_tpu/ops/ba_pallas.py:_gauss_jordan): n pivot steps
+// without pivoting,
 // each one rank-1 update of the augmented matrix.  The TPU version extracts
 // the pivot row and column by masked reductions because Mosaic has no
 // dynamic slice of a value; here they are indexed reads.

@@ -3,7 +3,8 @@ kernel.
 
 ``optimize_pgo_cuda(graph, odo_w, iters, lc_w, damping, prior_w)`` runs
 ``iters`` damped Gauss-Newton steps on one ``PoseGraph2D`` in one launch of
-``csrc/pgo.cu`` (one thread block) and returns the optimized poses (K, 3).
+``csrc/pgo.cu`` (one thread block, each step's system by a blocked
+Cholesky factorisation) and returns the optimized poses (K, 3).
 It replaces the JAX package's Pallas TPU kernel
 ``nclt_slam_tpu/ops/pgo_pallas.py:_pgo_kernel`` (behind
 ``optimize_pgo_pallas``).  Callers go through
@@ -13,8 +14,10 @@ takes CUDA tensors only, and launches the kernel or raises.
 
 The kernel takes the graph's own K (no lane padding) and loop indices (no
 one-hot selectors); ``odo_w`` is broadcast to (K-1,) and the loop weights
-are ``lc_w * valid``, as the TPU wrapper builds them.  The augmented
-matrix lives in a scratch tensor allocated here.  Each launch adds one to
+are ``lc_w * valid``, as the TPU wrapper builds them.  The system (the
+matrix padded to a multiple of 32 unknowns, its right-hand side and the
+reciprocals of the factor's diagonal) lives in a scratch tensor allocated
+here.  Each launch adds one to
 ``optimize_pgo_cuda.launches`` and to the count of its call site in
 ``optimize_pgo_cuda.site_launches``.
 """
@@ -30,10 +33,11 @@ import torch
 from nclt_slam_tpu_torch.ops import build
 
 SOURCE = build.CSRC / "pgo.cu"
-HEADERS = (build.CSRC / "gauss_jordan.cuh",)
-# The scratch matrix takes 36 K^2 bytes (151 MB at the limit) and the
-# kernel's shared memory 36 K bytes (74 KB, within a block's 227 KB).
+# The scratch system takes ~36 K^2 bytes (151 MB at the limit) and the
+# kernel's shared memory 117 KB + 12 K bytes (141 KB, within a block's
+# 227 KB).
 MAX_POSES = 2048
+PANEL = 32                # the kernel's panel width (kB in csrc/pgo.cu)
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -42,7 +46,7 @@ _lib_lock = threading.Lock()
 def build_library() -> Path:
     """Compile ``csrc/pgo.cu`` into ``build/kernels/`` and return the
     library's path."""
-    return build.build_library(SOURCE, headers=HEADERS)
+    return build.build_library(SOURCE)
 
 
 def _load():
@@ -82,13 +86,14 @@ def optimize_pgo_cuda(graph, odo_w, iters: int = 15, lc_w: float = 10.0,
                graph.loop_i.to(torch.int32), graph.loop_j.to(torch.int32),
                graph.loop_meas.to(torch.float32), loop_w]
     tensors = [t.contiguous() for t in tensors]
-    aug = torch.empty(3 * K, 3 * K + 1, **f32)
+    npad = -(-3 * K // PANEL) * PANEL
+    scratch = torch.empty(npad * (npad + 2), **f32)
     out = torch.empty(K, 3, **f32)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.pgo_solve(*(t.data_ptr() for t in tensors), K, L,
                             int(iters), float(prior_w), float(damping),
-                            aug.data_ptr(), out.data_ptr(), stream)
+                            scratch.data_ptr(), out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"optimize_pgo kernel launch failed: CUDA error "
                            f"{err}")

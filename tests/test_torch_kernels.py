@@ -159,13 +159,15 @@ def test_ba_kernel_rejects_unsupported(cuda):
                     cfg.vio)
 
 
-# K4 against its plain version on chip_smoke.py's three check graphs (the
+# K4 against its plain version on chip_smoke.py's four check graphs (the
 # JAX package's two-lap test graph reduced; the fused route's padded graph
 # at the SLAM tool's shape, 130 poses and 64 loop slots; a graph with no
-# valid loop): within 1e-3 (the float32 Gauss-Jordan without pivoting
+# valid loop; the padded graph of a 2000-pose session with 256 loop slots,
+# 514 poses): within 1e-3 (the float32 blocked Cholesky without pivoting
 # against a pivoted LU, in float32 and float64).
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["two_lap", "tool_shape", "no_valid_loop"])
+@pytest.mark.parametrize("name", ["two_lap", "tool_shape", "no_valid_loop",
+                                  "large"])
 def test_pgo_kernel_matches_plain(cuda, name):
     from nclt_slam_tpu_torch.datasets.slam import loop_closure as lc
     from nclt_slam_tpu_torch.ops import pgo as ops_pgo

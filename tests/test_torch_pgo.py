@@ -14,6 +14,11 @@ TPU kernel runs an unpivoted float32 Gauss-Jordan.  The full-graph and
 route-level solves agree within 1e-3 m; the fused route, which JAX solves
 with its dense atan2-wrap optimizer and the port with K4's floor-wrap
 function, within the same.
+
+``test_blocked_cholesky_rehearsal`` rehearses the arithmetic of the CUDA
+kernel (``csrc/pgo.cu``: an unpivoted float32 Cholesky in 32-column panels,
+the diagonal guard 1e-20) on the CPU, on ``chip_smoke.py``'s four check
+graphs, against ``optimize_pgo_plain`` in float64 within ``PGO_ATOL``.
 """
 
 import sys
@@ -26,7 +31,10 @@ import pytest
 import torch
 
 sys.path.insert(0, str(Path(__file__).parent))
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from test_pgo import _two_lap_graph  # noqa: E402
+
+from chip_smoke import PGO_ATOL, PGO_ITERS, pgo_graphs  # noqa: E402
 
 from nclt_slam_tpu.datasets.slam import loop_closure as jlc  # noqa: E402
 from nclt_slam_tpu.ops.pgo_pallas import optimize_pgo_pallas  # noqa: E402
@@ -186,3 +194,87 @@ def test_optimize_pgo_rejects_bad_graphs():
         tlc.optimize_pgo(g, torch.ones(5))
     with pytest.raises(ValueError):
         tlc.optimize_pose_graph_fast(g, backend="dense")
+
+
+PANEL = 32             # csrc/pgo.cu's kB
+
+
+def _blocked_cholesky_solve(H, rhs):
+    """Solve H x = rhs as csrc/pgo.cu does, in H's dtype: H padded to a
+    multiple of PANEL with an identity block; per panel, the diagonal tile
+    factored column by column (a diagonal <= 1e-20 or NaN taken as 1,
+    columns scaled by the diagonal's reciprocal), the tile's part of
+    L y = rhs and the rows below it (x L_JJ^T = a) solved by substitution,
+    the rest of rhs and the trailing lower triangle updated; then
+    L^T x = y panel by panel from the last."""
+    n = H.shape[0]
+    npad = -(-n // PANEL) * PANEL
+    A = torch.eye(npad, dtype=H.dtype)
+    A[:n, :n] = torch.tril(H)
+    r = torch.zeros(npad, dtype=H.dtype)
+    r[:n] = rhs
+    one = torch.ones((), dtype=H.dtype)
+    rinv = torch.zeros(npad, dtype=H.dtype)
+    for t0 in range(0, npad, PANEL):
+        d, rest = slice(t0, t0 + PANEL), slice(t0 + PANEL, npad)
+        D = torch.tril(A[d, d])
+        for c in range(PANEL):
+            piv = D[c, c] if D[c, c] > 1e-20 else one
+            D[c, c] = torch.sqrt(piv)
+            rinv[t0 + c] = one / D[c, c]
+            D[c + 1:, c] *= rinv[t0 + c]
+            D[c + 1:, c + 1:] -= torch.outer(D[c + 1:, c], D[c + 1:, c])
+        D = torch.tril(D)
+        A[d, d] = D
+        X = A[rest, d].clone()
+        for c in range(PANEL):
+            r[t0 + c] *= rinv[t0 + c]
+            r[t0 + c + 1:t0 + PANEL] -= D[c + 1:, c] * r[t0 + c]
+            X[:, c] *= rinv[t0 + c]
+            X[:, c + 1:] -= torch.outer(X[:, c], D[c + 1:, c])
+        A[rest, d] = X
+        for c in range(PANEL):
+            r[rest] -= X[:, c] * r[t0 + c]
+        A[rest, rest] -= X @ X.T
+    for t0 in range(npad - PANEL, -1, -PANEL):
+        d, head = slice(t0, t0 + PANEL), slice(0, t0)
+        for c in range(PANEL - 1, -1, -1):
+            r[t0 + c] *= rinv[t0 + c]
+            r[t0:t0 + c] -= A[t0 + c, t0:t0 + c] * r[t0 + c]
+        r[head] -= A[d, head].T @ r[d]
+    return r[:n]
+
+
+@pytest.mark.parametrize("name", ["two_lap", "tool_shape", "no_valid_loop",
+                                  "large"])
+def test_blocked_cholesky_rehearsal(name):
+    """PGO_ITERS Gauss-Newton steps of K4's function, each solved by the
+    kernel's float32 blocked Cholesky, within PGO_ATOL of the plain version
+    in float64: unpivoted float32 is accurate enough on these systems."""
+    graph, w = pgo_graphs(CPU)[name]
+    ei, ej, meas, wts = tlc._edges(graph, w, 10.0)
+    x = graph.poses
+    for _ in range(PGO_ITERS):
+        H, g = tlc._normal_equations(x, graph.poses[0], ei, ej, meas, wts,
+                                     1e4, 1e-3, tlc._wrap_floor)
+        x = x + _blocked_cholesky_solve(H, -g).reshape(-1, 3)
+    assert x.dtype == torch.float32 and torch.isfinite(x).all()
+    g64 = graph._replace(poses=graph.poses.double(),
+                         odo_meas=graph.odo_meas.double(),
+                         loop_meas=graph.loop_meas.double())
+    ref = tlc.optimize_pgo_plain(g64, w.double(), iters=PGO_ITERS)
+    err = (x.double() - ref).abs().max().item()
+    print(f"rehearsal {name}: {err:.3e} from float64 (limit {PGO_ATOL})")
+    assert err <= PGO_ATOL, err
+
+
+def test_blocked_cholesky_solves_spd_system():
+    """The rehearsal's solver on a random SPD system of a tail panel
+    (n = 70, padded to 96) matches a float64 solve."""
+    rng = np.random.RandomState(0)
+    M = rng.normal(size=(70, 70))
+    H = M @ M.T + 70 * np.eye(70)
+    b = rng.normal(size=70)
+    got = _blocked_cholesky_solve(torch.from_numpy(H), torch.from_numpy(b))
+    np.testing.assert_allclose(got.numpy(), np.linalg.solve(H, b),
+                               rtol=0, atol=1e-10)
