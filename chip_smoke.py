@@ -10,9 +10,11 @@ Phases, each of which must pass (any failure exits non-zero):
 2. build the four hand-written kernels from ``nclt_slam_tpu_torch/csrc``
    with nvcc, one compiler process per source, all started together;
 3. hold the wavefront kernel (K2) against its plain PyTorch version, bit for
-   bit (``torch.equal``), at the planner's two shapes — (15, 192, 192)
-   windows and the (15, 119, 232) coarse map, 384 iterations, random lethal
-   cells — and time both with CUDA events;
+   bit (``torch.equal``) on each of 10 launches, at the planner's two
+   shapes — (15, 192, 192) windows and the (15, 119, 232) coarse map, 384
+   iterations, random lethal cells — print its plan (a cluster of 8 blocks
+   a grid: band rows, halo depth, shared memory, the clusters the card
+   holds at once) and time both with CUDA events;
 4. hold the Hamming cross-check kernel (K1) against its plain version, bit
    for bit on all three outputs, at the main path's shapes — 15 problems of
    256 live features x 384 VIO map points, 75 problems of 256 x 256, and
@@ -61,6 +63,12 @@ Phases, each of which must pass (any failure exits non-zero):
 9. drive the GT-localized main path through the campaign API: 15 routes at
    full width, a GT teach, teach waypoints, a GT repeat with
    ``stop_when_done=False``; check that K2 was launched on it;
+9b. run the GT repeat twice more from that teach and config, 100 ticks
+   each, and hold the two runs bit-equal: every trace, every tensor of the
+   final state (the live log-odds grid, the inflated costmap window and the
+   coarse potential among them) and the potential of every
+   ``plan_window`` call (run-to-run determinism on K2's path, where
+   ``integrate_depth`` sums with ``scatter_add_``);
 10. drive the ours main path through the campaign API: the 15-route
    campaign at full width, a VIO teach (``config.gt_localization()``), the
    aligned-VIO teach waypoints and a full-stack repeat (``config.ours()``:
@@ -82,9 +90,9 @@ Phases, each of which must pass (any failure exits non-zero):
     each stage's wall seconds, scans/s and the ladder row, and time the
     ICP's parts;
 12. profile a short window of the ours repeat, and one full-width ICP, for
-    the launches per tick (per ICP iteration) and the device's busy share
-    (last, because the profiler slows every launch that follows it in the
-    process).
+    the launches per tick (per ICP iteration), the device's busy share and
+    K2's device time in the ours window (last, because the profiler slows
+    every launch that follows it in the process).
 
 Each main path runs with the kernels' launch counts set to 0 just before
 it and read just after.  The last three lines are a JSON line of
@@ -121,6 +129,8 @@ BA_PERIOD = 10                        # local BA runs at tick % 10 == 3
 PROFILE_TICKS = 10
 KERNEL_SHAPES = ((15, 192, 192), (15, 119, 232))
 KERNEL_ITERS = 384
+K2_CHECK_LAUNCHES = 10
+DETERMINISM_TICKS = 100
 # K1 problems: (a-sets, A rows, b-sets, B rows), 8 words (256 bits) a row
 HAMMING_SHAPES = ((15, 256, 15, 384), (75, 256, 75, 256), (75, 256, 15, 256))
 DESC_WORDS = 8
@@ -341,15 +351,22 @@ def kernel_phase(dev):
         gc = torch.randint(0, W, (B,), generator=g)
         phi0[torch.arange(B), gr, gc] = 0.0
         tc, phi0 = tc.to(dev), phi0.to(dev)
-        out = wf.wavefront_relax(tc, phi0, KERNEL_ITERS)
         ref = wf.wavefront_relax_plain(tc, phi0, KERNEL_ITERS)
+        outs = [wf.wavefront_relax(tc, phi0, KERNEL_ITERS)
+                for _ in range(K2_CHECK_LAUNCHES)]
         torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        check(torch.equal(out, ref),
-              f"K2 differs from its plain version at {(B, H, W)}: "
-              f"max abs err {err}")
-        check((out < 1e8).float().mean().item() > 0.5,
+        err = max((o - ref).abs().max().item() for o in outs)
+        bad = [i for i, o in enumerate(outs) if not torch.equal(o, ref)]
+        check(not bad, f"K2 differs from its plain version at {(B, H, W)} "
+              f"on launches {bad} of {K2_CHECK_LAUNCHES}: max abs err {err}")
+        check((ref < 1e8).float().mean().item() > 0.5,
               f"K2 at {(B, H, W)}: most cells unreachable")
+        plan = wf._launch_shape(H, W)
+        plan = dict(plan._asdict(), grid=plan.grid(B),
+                    max_active_clusters=wf.max_active_clusters(H, W))
+        check(plan["max_active_clusters"] >= B,
+              f"K2 at {(B, H, W)}: the card holds "
+              f"{plan['max_active_clusters']} clusters, fewer than {B}")
         ms = time_cuda(lambda: wf.wavefront_relax(tc, phi0, KERNEL_ITERS), 20)
         plain_ms = time_cuda(
             lambda: wf.wavefront_relax_plain(tc, phi0, KERNEL_ITERS), 3)
@@ -359,10 +376,17 @@ def kernel_phase(dev):
         b_ms, b_by = bound_ms(3 * B * H * W * 4,
                               18 * B * H * W * KERNEL_ITERS)
         rows.append(dict(shape=[B, H, W], max_abs_err=err, ms=ms,
-                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by))
-        print(f"K2 {B}x{H}x{W} x{KERNEL_ITERS}: equal to plain, "
-              f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by})", flush=True)
+                         ms_per_iter=ms / KERNEL_ITERS, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, plan=plan))
+        print(f"K2 {B}x{H}x{W} x{KERNEL_ITERS}: {K2_CHECK_LAUNCHES} launches "
+              f"equal to plain; plan: cluster {plan['cluster']}, band rows "
+              f"{plan['band_rows']}, halo {plan['halo']}, "
+              f"{plan['threads_x']}x{plan['threads_y']} threads x "
+              f"{plan['rows']} rows, {plan['smem_bytes']} B shared, grid "
+              f"{plan['grid']}, max active clusters "
+              f"{plan['max_active_clusters']}; kernel {ms:.4f} ms "
+              f"({ms / KERNEL_ITERS * 1e3:.3f} us an iteration), plain "
+              f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
     return rows
 
 
@@ -1624,12 +1648,91 @@ def main_path_phase(dev):
         landmarks=teach.store.count.cpu().tolist())
     print("gt_campaign_metrics " + json.dumps(agg), flush=True)
     print("gt_main_path " + json.dumps(stats), flush=True)
+    return stats, (data, teach, wps, n_wps, cfg)
+
+
+@contextlib.contextmanager
+def record_potentials(planner):
+    """While the block runs, every ``planner.plan_window`` call appends a
+    copy of its potential to the yielded list (``plan_world`` looks the
+    name up at each call)."""
+    seen = []
+    inner = planner.plan_window
+
+    def wrapped(*a, **kw):
+        res = inner(*a, **kw)
+        seen.append(res.potential.clone())
+        return res
+
+    planner.plan_window = wrapped
+    try:
+        yield seen
+    finally:
+        planner.plan_window = inner
+
+
+def same_bits(a, b) -> bool:
+    import numpy as np
+    import torch
+    a, b = (x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+            for x in (a, b))
+    return a.shape == b.shape and a.dtype == b.dtype and \
+        a.tobytes() == b.tobytes()
+
+
+def determinism_phase(data, teach, wps, n_wps, cfg):
+    """The GT repeat twice from one teach and one config: every trace, every
+    tensor of the final state (the costmaps among them) and every
+    ``plan_window`` potential bit-equal."""
+    import numpy as np
+    import torch
+    from nclt_slam_tpu_torch.planning import wavefront as planner
+    from nclt_slam_tpu_torch.rollout import campaign
+
+    runs = []
+    for _ in range(2):
+        with record_potentials(planner) as pots:
+            rep = campaign.run_campaign_repeat(
+                data, teach.teach_grid, wps, n_wps, cfg, DETERMINISM_TICKS,
+                stop_when_done=False)
+        torch.cuda.synchronize()
+        runs.append((rep, pots))
+    (a, pa), (b, pb) = runs
+    check(len(pa) > 0 and len(pa) == len(pb),
+          f"determinism: plan_window ran {len(pa)} and {len(pb)} times")
+    def leaves(tree, name):
+        if not isinstance(tree, tuple):
+            return [(name, tree)]
+        return [x for f, sub in zip(tree._fields, tree)
+                for x in leaves(sub, f"{name}.{f}")]
+
+    diffs = []
+    for name in a.trace._fields:
+        x, y = getattr(a.trace, name), getattr(b.trace, name)
+        if not same_bits(x, y):
+            bad = np.flatnonzero((np.asarray(x) != np.asarray(y)).reshape(
+                x.shape[0], x.shape[1], -1).any(-1).any(0))
+            diffs.append(f"trace {name} from tick "
+                         f"{int(bad[0]) if len(bad) else 'nan-only'}")
+    final = list(zip(leaves(a.final, "final"), leaves(b.final, "final")))
+    diffs += [name for (name, x), (_, y) in final if not same_bits(x, y)]
+    diffs += [f"plan_window call {i}" for i, (x, y) in enumerate(zip(pa, pb))
+              if not same_bits(x, y)]
+    check(not diffs, "the GT repeat differs between two runs: "
+          + "; ".join(diffs[:10]))
+    stats = dict(ticks=executed(DETERMINISM_TICKS), plan_window_calls=len(pa),
+                 final_leaves=len(final))
+    print("gt_determinism: two runs bit-equal (traces, every final state "
+          "tensor, plan_window potentials) " + json.dumps(stats), flush=True)
     return stats
 
 
-def profile_window(fn):
+def profile_window(fn, kernel=None):
     """Run ``fn`` under torch.profiler: (kernel launches, device busy
-    seconds, wall seconds)."""
+    seconds, wall seconds), and with ``kernel`` (a part of a kernel's
+    name) that kernel's (launches, device seconds) as a fourth item.
+    Launches count ``cudaLaunchKernel`` and ``cudaLaunchKernelExC`` (a
+    cluster launch)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1641,10 +1744,17 @@ def profile_window(fn):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     ka = prof.key_averages()
-    launches = sum(e.count for e in ka if e.key == "cudaLaunchKernel")
-    busy_us = sum(e.self_device_time_total for e in ka
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    return launches, busy_us * 1e-6, wall
+    launches = sum(e.count for e in ka
+                   if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"))
+    on_card = [e for e in ka
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in on_card)
+    if kernel is None:
+        return launches, busy_us * 1e-6, wall
+    mine = [e for e in on_card if kernel in e.key]
+    return launches, busy_us * 1e-6, wall, (
+        sum(e.count for e in mine),
+        sum(e.self_device_time_total for e in mine) * 1e-6)
 
 
 def ours_main_path_phase(dev):
@@ -1739,21 +1849,24 @@ def ours_main_path_phase(dev):
 
 def ours_profile_phase(shared, carry):
     """A short profiled window continuing the ours repeat: launches per
-    tick and the device's busy share.  It runs after every timed phase: once
+    tick, the device's busy share and K2's device time in it.  It runs after every timed phase: once
     the profiler has attached to the CUDA driver, launches stay slower for
     the rest of the process."""
     from nclt_slam_tpu_torch import config
     from nclt_slam_tpu_torch.rollout.repeat import run_repeat
 
     data, teach, wps, n_wps = shared
-    launches, busy_s, wall = profile_window(lambda: run_repeat(
-        data.scenes_repeat, data.routes, teach.teach_grid, wps, n_wps,
-        config.ours(), PROFILE_TICKS, store=teach.store, carry=carry,
-        tick0=executed(OURS_REPEAT_TICKS)))
+    launches, busy_s, wall, (k2_n, k2_s) = profile_window(
+        lambda: run_repeat(
+            data.scenes_repeat, data.routes, teach.teach_grid, wps, n_wps,
+            config.ours(), PROFILE_TICKS, store=teach.store, carry=carry,
+            tick0=executed(OURS_REPEAT_TICKS)), kernel="relax_kernel")
     stats = dict(profiled_ticks=PROFILE_TICKS,
                  profiled_ms_per_tick=wall / PROFILE_TICKS * 1e3,
                  launches_per_tick=launches / PROFILE_TICKS,
-                 device_busy_share=busy_s / wall)
+                 device_busy_share=busy_s / wall,
+                 device_ms=busy_s * 1e3, k2_launches=k2_n,
+                 k2_device_ms=k2_s * 1e3)
     print("ours_profile " + json.dumps(stats), flush=True)
     return stats
 
@@ -1882,7 +1995,9 @@ def run() -> int:
     fixture_phase(dev)
     rgbd_ba_fixture_phase(ours_fixture_phase(dev), dev)
     slam_fixture_phase(dev)
-    gt = main_path_phase(dev)
+    gt, gt_ctx = main_path_phase(dev)
+    determinism = determinism_phase(*gt_ctx)
+    del gt_ctx
     ours, shared, ours_carry = ours_main_path_phase(dev)
     rgbd_ba = rgbd_ba_main_path_phase(shared, dev)
     slam = slam_main_path_phase(dev, card)
@@ -1935,6 +2050,9 @@ def run() -> int:
             "coarse_ms": coarse["ms"],
             "coarse_plain_ms": coarse["plain_ms"],
             "coarse_bound_ms": coarse["bound_ms"],
+            "plan": window["plan"],
+            "coarse_plan": coarse["plan"],
+            "gt_determinism": determinism,
         },
         {
             "name": "solve_ba",

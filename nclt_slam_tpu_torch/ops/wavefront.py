@@ -18,6 +18,18 @@ runs only for tensors on the CPU.  Both are bit-exact with the JAX
 package's XLA loop and Pallas kernel: the same Jacobi order, fixed trip
 count, ``tc * 1.4142135`` rounded once and then added, and ``BIG + tc`` for
 an out-of-grid neighbour.
+
+The kernel relaxes each grid with a cluster of ``CLUSTER`` = 8 thread
+blocks: rank k owns the band of ``ceil(H / 8)`` rows from row
+``k * ceil(H / 8)`` and keeps ``halo`` rows of each neighbour band beside
+it, runs ``halo`` Jacobi steps alone, then exchanges the edge rows with
+its two neighbours through distributed shared memory (see the source's
+header).  ``_launch_shape`` is that plan.  It takes every (H, W) with
+W <= 1024 whose bands fit shared memory at a halo of one row,
+``smem_bytes(ceil(H / 8), 1, W) <= 232448``, with at most 64 rows a
+thread; that holds every shape the first, one-block-a-grid
+kernel took (W <= 1024, ``(H + 2) * (W + 2) * 4 <= 232448``, at most 64
+rows a thread), and more.  Other shapes raise ``ValueError``.
 """
 
 from __future__ import annotations
@@ -25,6 +37,7 @@ from __future__ import annotations
 import ctypes
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -36,8 +49,11 @@ DIAG = 1.4142135
 SOURCE = build.CSRC / "wavefront.cu"
 NVCC_FLAGS = build.BASE_FLAGS + ("--fmad=false",)
 
-# the kernel keeps a (H + 2, W + 2) float32 plane in shared memory and one
-# column of threads per grid column (see csrc/wavefront.cu)
+# the kernel's plan (see csrc/wavefront.cu): a cluster of CLUSTER blocks a
+# grid, each block a band of rows with HALO_DEPTH halo rows a side (fewer
+# where the band is shorter or shared memory is short), one thread a column
+CLUSTER = 8
+HALO_DEPTH = 8
 MAX_SMEM_BYTES = 232448
 MAX_ROWS_PER_THREAD = 64
 MAX_THREADS = 1024
@@ -92,20 +108,55 @@ def _check(tc, phi0, n_iter):
         raise ValueError("n_iter must be >= 0")
 
 
-def _launch_shape(H: int, W: int):
-    """(threads per block row, rows of threads, grid rows per thread) the
-    kernel uses for an (H, W) grid; raises if it cannot take the shape."""
+class Plan(NamedTuple):
+    """How the kernel relaxes an (H, W) grid."""
+    cluster: int      # blocks a grid, one band each
+    band_rows: int    # R = ceil(H / cluster) grid rows a band
+    halo: int         # h: rows kept of each neighbour band, steps a round
+    threads_x: int    # W: one thread a column
+    threads_y: int    # rows of threads
+    rows: int         # local rows a thread relaxes
+    smem_bytes: int   # dynamic shared memory a block
+
+    def grid(self, B: int) -> int:
+        """Thread blocks of a launch over B grids."""
+        return B * self.cluster
+
+
+def pitch(W: int) -> int:
+    """Floats a row of the kernel's buffers takes: column c at 4 + c, BIG
+    at c = -1 and c = W, rounded up to a multiple of 4 (float4 rows)."""
+    return (W + 8) & ~3
+
+
+def smem_bytes(band_rows: int, halo: int, W: int) -> int:
+    """Shared memory of one block: two (R + 2h, pitch(W)) potential buffers
+    and two parities of two h x W halo mailboxes."""
+    return 4 * (2 * (band_rows + 2 * halo) * pitch(W) + 4 * halo * W)
+
+
+def _launch_shape(H: int, W: int, halo: int | None = None) -> Plan:
+    """The kernel's plan for an (H, W) grid (``halo`` defaults to
+    ``HALO_DEPTH``, cut to the band and to shared memory); raises
+    ``ValueError`` if it cannot take the shape."""
     if W > MAX_THREADS:
         raise ValueError(f"wavefront kernel: width {W} > {MAX_THREADS}")
-    if (H + 2) * (W + 2) * 4 > MAX_SMEM_BYTES:
-        raise ValueError(f"wavefront kernel: ({H}, {W}) grid does not fit "
-                         f"{MAX_SMEM_BYTES} bytes of shared memory")
-    ty = max(1, min(H, MAX_THREADS // W))
-    rows = -(-H // ty)
+    R = -(-H // CLUSTER)
+    h = max(1, min(HALO_DEPTH if halo is None else halo, R))
+    while h > 1 and smem_bytes(R, h, W) > MAX_SMEM_BYTES:
+        h -= 1
+    if smem_bytes(R, h, W) > MAX_SMEM_BYTES:
+        raise ValueError(f"wavefront kernel: bands of the ({H}, {W}) grid "
+                         f"do not fit {MAX_SMEM_BYTES} bytes of shared "
+                         f"memory")
+    n_rows = max(1, R + 2 * h - 2)  # local rows a step may relax
+    ty = max(1, min(n_rows, MAX_THREADS // max(W, 1)))
+    rows = -(-n_rows // ty)
     if rows > MAX_ROWS_PER_THREAD:
         raise ValueError(f"wavefront kernel: ({H}, {W}) needs {rows} rows "
                          f"per thread (max {MAX_ROWS_PER_THREAD})")
-    return W, ty, rows
+    ty = -(-n_rows // rows)         # every row of threads has rows to relax
+    return Plan(CLUSTER, R, h, W, ty, rows, smem_bytes(R, h, W))
 
 
 _lib = None
@@ -125,36 +176,51 @@ def _load():
             lib = ctypes.CDLL(str(build_library()))
             fn = lib.wavefront_relax
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_void_p]
+                           *[ctypes.c_int] * 9, ctypes.c_void_p]
             fn.restype = ctypes.c_int
+            occ = lib.wavefront_max_active_clusters
+            occ.argtypes = [*[ctypes.c_int] * 4, ctypes.c_void_p]
+            occ.restype = ctypes.c_int
             _lib = lib
     return _lib
+
+
+def max_active_clusters(H: int, W: int) -> int:
+    """Clusters of the (H, W) plan the card holds at once: the grids of one
+    launch run in one wave when there are no more of them than this."""
+    plan = _launch_shape(H, W)
+    n = ctypes.c_int(0)
+    err = _load().wavefront_max_active_clusters(
+        W, plan.threads_y, plan.rows, plan.smem_bytes, ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: CUDA "
+                           f"error {err}")
+    return n.value
 
 
 def wavefront_relax(tc, phi0, n_iter: int):
     """Relaxed potential (B, H, W) from costs ``tc`` and seed ``phi0``.
 
-    CUDA tensors go through the hand-written kernel (one block per grid);
-    CPU tensors through ``wavefront_relax_plain``.  Each kernel launch adds
-    one to ``wavefront_relax.launches``."""
+    CUDA tensors go through the hand-written kernel (a cluster of 8 blocks
+    a grid); CPU tensors through ``wavefront_relax_plain``.  Each kernel
+    launch adds one to ``wavefront_relax.launches``."""
     _check(tc, phi0, n_iter)
     if tc.device.type == "cpu":
         return wavefront_relax_plain(tc, phi0, n_iter)
     if tc.device.type != "cuda":
         raise ValueError(f"wavefront_relax: unsupported device {tc.device}")
     B, H, W = tc.shape
-    _, ty, rows = _launch_shape(H, W)
+    plan = _launch_shape(H, W)
     out = torch.empty_like(phi0)
-    if B == 0:
+    if out.numel() == 0:
         return out
     lib = _load()
     with torch.cuda.device(tc.device):
         stream = torch.cuda.current_stream(tc.device).cuda_stream
         err = lib.wavefront_relax(tc.data_ptr(), phi0.data_ptr(),
-                                  out.data_ptr(), B, H, W, n_iter, ty, rows,
-                                  stream)
+                                  out.data_ptr(), B, H, W, n_iter,
+                                  plan.band_rows, plan.halo, plan.threads_y,
+                                  plan.rows, plan.smem_bytes, stream)
     if err != 0:
         raise RuntimeError(f"wavefront kernel launch failed: CUDA error {err}")
     wavefront_relax.launches += 1

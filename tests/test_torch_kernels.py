@@ -37,9 +37,16 @@ def cuda():
     return torch.device("cuda", 0)
 
 
+# the planner's two shapes; H < 8 (empty bands: (1, 1, 5), (2, 5, 9));
+# uneven bands (119 = 7 * 15 + 14, 37 = 7 * 5 + 2); n_iter not a multiple
+# of the halo depth (70, 11, 9, 383); the widest grid the first kernel took
+# at its full height (1, 54, 1024), where shared memory cuts the halo
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", [(15, 192, 192, 384), (15, 119, 232, 384),
-                                   (2, 37, 53, 70), (1, 1, 5, 3)])
+                                   (2, 37, 53, 70), (1, 1, 5, 3),
+                                   (2, 5, 9, 11), (3, 119, 232, 383),
+                                   (1, 54, 1024, 9), (2, 7, 300, 20),
+                                   (1, 2000, 30, 50)])
 def test_wavefront_kernel_equals_plain(cuda, shape):
     B, H, W, n_iter = shape
     tc, phi0 = _grids(np.random.RandomState(H * W), B, H, W)
@@ -49,6 +56,17 @@ def test_wavefront_kernel_equals_plain(cuda, shape):
     torch.cuda.synchronize()
     assert ops.wavefront_relax.launches == before + 1
     assert torch.equal(got, ops.wavefront_relax_plain(tc, phi0, n_iter))
+
+
+@pytest.mark.cuda
+def test_wavefront_kernel_repeated_launches(cuda):
+    # a race in the halo exchange would show as an occasional difference
+    tc, phi0 = _grids(np.random.RandomState(7), 15, 192, 192)
+    tc, phi0 = tc.to(cuda), phi0.to(cuda)
+    ref = ops.wavefront_relax_plain(tc, phi0, 384)
+    outs = [ops.wavefront_relax(tc, phi0, 384) for _ in range(20)]
+    torch.cuda.synchronize()
+    assert [i for i, o in enumerate(outs) if not torch.equal(o, ref)] == []
 
 
 @pytest.mark.cuda

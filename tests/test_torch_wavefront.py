@@ -77,9 +77,124 @@ def test_wrapper_rejects_bad_input():
     with pytest.raises(ValueError):
         ops._launch_shape(8, 2048)
     with pytest.raises(ValueError):
-        ops._launch_shape(400, 400)     # plane exceeds shared memory
-    assert ops._launch_shape(192, 192) == (192, 5, 39)
-    assert ops._launch_shape(119, 232) == (232, 4, 30)
+        ops._launch_shape(2000, 400)    # bands exceed shared memory
+    for (H, W), (band, ty) in (((192, 192), (24, 5)),
+                               ((119, 232), (15, 4))):
+        plan = ops._launch_shape(H, W)
+        assert (plan.cluster, plan.band_rows, plan.threads_x,
+                plan.threads_y) == (8, band, W, ty)
+        assert plan.halo == min(ops.HALO_DEPTH, band)
+
+
+def _cluster_model(tc, phi0, n_iter, plan):
+    """The kernel's schedule on the CPU, step for step: per rank a band of
+    ``plan.band_rows`` rows and ``plan.halo`` halo rows a side in two
+    ping-pong (L, W + 2) buffers with a BIG border; rounds of ``halo``
+    local Jacobi steps, each storing every local row but the first and the
+    last (a row outside the grid with tc = inf, so that it stays BIG), then
+    halo rows refreshed from the two adjacent ranks only; the kernel's
+    arithmetic (fminf; the min of the orthogonal, the diagonal, neighbours
+    before the add of tc, tc * 1.4142135)."""
+    B, H, W = tc.shape
+    C, R, h = plan.cluster, plan.band_rows, plan.halo
+    L, P = R + 2 * h, W + 2
+    mn = torch.fmin
+    bufs, tcs = [], []
+    for k in range(C):
+        g = torch.arange(k * R - h, k * R - h + L)
+        inside = (g >= 0) & (g < H)
+        buf = torch.full((B, L, P), BIG)
+        buf[:, inside, 1:-1] = phi0[:, g[inside]]
+        t = torch.full((B, L, W), float("inf"))
+        t[:, inside] = tc[:, g[inside]]
+        bufs.append([buf, buf.clone()])
+        tcs.append(t[:, 1:-1])
+    t0 = 0
+    while t0 < n_iter:
+        s = min(h, n_iter - t0)
+        for k in range(C):
+            for _ in range(s):
+                cur, nxt = bufs[k]
+                u, m, d = cur[:, :-2], cur[:, 1:-1], cur[:, 2:]
+                orth = mn(mn(u[..., 1:-1], d[..., 1:-1]),
+                          mn(m[..., :-2], m[..., 2:]))
+                diag = mn(mn(u[..., :-2], u[..., 2:]),
+                          mn(d[..., :-2], d[..., 2:]))
+                t = tcs[k]
+                nxt[:, 1:-1, 1:-1] = mn(m[..., 1:-1],
+                                        mn(orth + t, diag + t * ops.DIAG))
+                bufs[k] = [nxt, cur]
+        t0 += s
+        if t0 < n_iter:
+            tops = [bufs[k - 1][0][:, R:R + h].clone() if k else None
+                    for k in range(C)]
+            bottoms = [bufs[k + 1][0][:, h:2 * h].clone() if k < C - 1
+                       else None for k in range(C)]
+            for k in range(C):
+                if k:
+                    bufs[k][0][:, :h] = tops[k]
+                if k < C - 1:
+                    bufs[k][0][:, R + h:] = bottoms[k]
+    out = torch.empty_like(phi0)
+    for k in range(C):
+        n = max(0, min(R, H - k * R))
+        out[:, k * R:k * R + n] = bufs[k][0][:, h:h + n, 1:-1]
+    return out
+
+
+SCHEDULE_CASES = [(2, 37, 53, 70), (1, 1, 5, 3), (2, 5, 9, 11),
+                  (1, 119, 232, 40), (1, 192, 192, 40)]
+
+
+@pytest.mark.parametrize("halo", ["1", "kernel"])
+@pytest.mark.parametrize("case", SCHEDULE_CASES)
+def test_cluster_schedule_equals_plain(case, halo):
+    B, H, W, n_iter = case
+    plan = ops._launch_shape(H, W, halo=1 if halo == "1" else None)
+    rng = np.random.RandomState(H * W + n_iter)
+    grids = [_grid(rng, H, W) for _ in range(B)]
+    tc = torch.from_numpy(np.stack([g[0] for g in grids]))
+    p0 = torch.from_numpy(np.stack([g[1] for g in grids]))
+    got = _cluster_model(tc, p0, n_iter, plan)
+    ref = ops.wavefront_relax_plain(tc, p0, n_iter)
+    assert torch.equal(got, ref)
+    if (H, W) == (192, 192) and halo == "kernel":
+        pallas = np.asarray(wavefront_potential_pallas(
+            jnp.asarray(grids[0][0]), jnp.asarray(grids[0][1]),
+            n_iter=n_iter, res=0.1, interpret=True))
+        assert np.array_equal(got[0].numpy(), pallas)
+
+
+def _old_envelope_max_h(W):
+    """The tallest grid of width W the first kernel (one block a grid, the
+    whole plane in shared memory, at most 64 rows a thread) accepted."""
+    H = ops.MAX_SMEM_BYTES // (4 * (W + 2)) - 2
+    return min(H, ops.MAX_ROWS_PER_THREAD * max(1, ops.MAX_THREADS // W))
+
+
+@pytest.mark.parametrize("H, W", [(192, 192), (119, 232), (1, 1), (1, 1024),
+                                  (54, 1024), (_old_envelope_max_h(1), 1),
+                                  (_old_envelope_max_h(513), 513),
+                                  (_old_envelope_max_h(342), 342),
+                                  (_old_envelope_max_h(100), 100),
+                                  (5, 9), (37, 53)])
+def test_cluster_plan(H, W):
+    plan = ops._launch_shape(H, W)
+    C, R, h = plan.cluster, plan.band_rows, plan.halo
+    assert C == ops.CLUSTER == 8 and plan.grid(15) == 15 * C
+    # the bands cover every grid row once, in rank order
+    bands = [range(k * R, min((k + 1) * R, H)) for k in range(C)]
+    assert [r for band in bands for r in band] == list(range(H))
+    assert 1 <= h <= R      # halos come from the adjacent ranks only
+    assert plan.smem_bytes == ops.smem_bytes(R, h, W) <= ops.MAX_SMEM_BYTES
+    # the threads cover the local rows a step may relax, each row of
+    # threads some of them, and fit one block
+    n_rows = R + 2 * h - 2
+    assert plan.threads_x == W and plan.threads_x * plan.threads_y <= 1024
+    assert (plan.threads_y - 1) * plan.rows < n_rows <= \
+        plan.threads_y * plan.rows <= plan.threads_y * 64
+    if (H, W) in ((192, 192), (119, 232)):
+        assert h == ops.HALO_DEPTH
 
 
 def _cfgs(W=64):
