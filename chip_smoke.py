@@ -16,11 +16,15 @@ Phases, each of which must pass (any failure exits non-zero):
    a grid: band rows, halo depth, shared memory, the clusters the card
    holds at once) and time both with CUDA events;
 4. hold the Hamming cross-check kernel (K1) against its plain version, bit
-   for bit on all three outputs, at the main path's shapes — 15 problems of
-   256 live features x 384 VIO map points, 75 problems of 256 x 256, and
-   the matcher's grouped form (75 stored-feature sets, five per route,
-   against their route's 15 live frames) — with ~20 % invalid rows, shared
-   rows (ties) and one all-invalid problem, and time both;
+   for bit on all three outputs of each of 10 launches, at the main path's
+   shapes — 15 problems of 256 live features x 384 VIO map points, 75
+   problems of 256 x 256, and the matcher's grouped form (75
+   stored-feature sets, five per route, against their route's 15 live
+   frames) — with ~20 % invalid rows, shared rows (ties) and one
+   all-invalid problem; print its plan (a cluster of blocks a problem:
+   band rows, owned columns, threads, shared memory, the clusters the card
+   holds at once) and time it, its plain version and an empty kernel of
+   the same launch shape (the launch floor);
 5. hold the bundle-adjustment kernel (K3) against its plain version on
    consistent windows (observations are projections of true points, so both
    solvers reach one optimum) by tolerance, at four shapes up to the
@@ -36,6 +40,9 @@ Phases, each of which must pass (any failure exits non-zero):
    two runs bit-equal; time it at the tool's shape beside 15 calls of
    ``torch.linalg.solve`` on its 390-unknown system, per Gauss-Newton
    iteration too;
+5c. run the port's dense ``optimize_pose_graph`` (the path ``run_slam``
+   takes below 400 poses) on the unreduced two-lap graph (240 poses, 4
+   loops) twice on the card and hold the two results bit-equal;
 6. replay the JAX reference fixture of the GT-localized campaign
    (``tests/data/torch_gt_campaign_fixture.npz``: 2 routes at full width,
    100 teach + 100 repeat ticks) and compare within the tolerances below;
@@ -91,8 +98,8 @@ Phases, each of which must pass (any failure exits non-zero):
     ICP's parts;
 12. profile a short window of the ours repeat, and one full-width ICP, for
     the launches per tick (per ICP iteration), the device's busy share and
-    K2's device time in the ours window (last, because the profiler slows
-    every launch that follows it in the process).
+    K2's and K1's device time in the ours window (last, because the
+    profiler slows every launch that follows it in the process).
 
 Each main path runs with the kernels' launch counts set to 0 just before
 it and read just after.  The last three lines are a JSON line of
@@ -134,6 +141,9 @@ DETERMINISM_TICKS = 100
 # K1 problems: (a-sets, A rows, b-sets, B rows), 8 words (256 bits) a row
 HAMMING_SHAPES = ((15, 256, 15, 384), (75, 256, 75, 256), (75, 256, 15, 256))
 DESC_WORDS = 8
+K1_CHECK_LAUNCHES = 10
+K1_TIMED_LAUNCHES = 200
+PGO_DETERMINISM_RUNS = 2
 # K3 against its plain version on consistent windows: (windows, keyframes,
 # landmarks, iterations, point prior weight or None, w_rel); the last is
 # the rollout's call (one window a route, scalar w_rel, point prior)
@@ -295,6 +305,42 @@ def time_cuda(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def time_cuda_graph(fn, reps, replays: int = 5):
+    """Device ms a call of ``fn``: ``reps`` calls captured in one CUDA
+    graph and replayed ``replays`` times between two events.  A replay
+    issues the kernels without the host's Python, checks and ctypes call,
+    so a kernel shorter than its wrapper's host cost is timed by the card
+    (each launch still pays its own start and finish on the card).  Calls
+    made during capture run no kernel and are not counted by ``fn``'s
+    wrapper beyond the capture itself."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * reps)
+    del graph
+    return ms
+
+
 def reset_counts():
     from nclt_slam_tpu_torch.ops import ba as ops_ba
     from nclt_slam_tpu_torch.ops import hamming as hm
@@ -390,35 +436,67 @@ def kernel_phase(dev):
     return rows
 
 
+def hamming_inputs(shape, dev, seed: int = 1):
+    """K1's check inputs at (P, A, Q, B): random words, b rows shared with
+    and near (one bit off) the a rows of their group's first problem (ties
+    and matches), ~20 % invalid rows and one all-invalid problem."""
+    import torch
+    P, A, Q, B = shape
+    W = DESC_WORDS
+    grp = P // Q
+    g = torch.Generator().manual_seed(seed)
+    da = torch.randint(0, 2 ** 32, (P, A, W), generator=g)
+    db = torch.randint(0, 2 ** 32, (Q, B, W), generator=g)
+    n = min(A, B) // 2
+    db[:, :n] = da[::grp, :n]                          # shared rows
+    db[:, n:n + n // 2] = da[::grp, n:n + n // 2] ^ 4  # near ties
+    va = torch.rand(P, A, generator=g) > 0.2
+    vb = torch.rand(Q, B, generator=g) > 0.2
+    va[P // 2] = False                                 # all invalid
+    return [t.to(dev) for t in (da, va, db, vb)]
+
+
 def hamming_phase(dev):
-    """K1 against its plain version at the main path's shapes."""
+    """K1 against its plain version at the main path's shapes: each of
+    K1_CHECK_LAUNCHES launches bit-equal, the plan and the clusters the
+    card holds, the kernel's, the plain version's and the launch floor's
+    times."""
     import torch
     from nclt_slam_tpu_torch.ops import hamming as hm
 
-    g = torch.Generator().manual_seed(1)
     rows = []
-    for P, A, Q, B in HAMMING_SHAPES:
+    for seed, (P, A, Q, B) in enumerate(HAMMING_SHAPES, 1):
         W = DESC_WORDS
-        grp = P // Q
-        da = torch.randint(0, 2 ** 32, (P, A, W), generator=g)
-        db = torch.randint(0, 2 ** 32, (Q, B, W), generator=g)
-        n = min(A, B) // 2
-        db[:, :n] = da[::grp, :n]                          # shared rows
-        db[:, n:n + n // 2] = da[::grp, n:n + n // 2] ^ 4  # near ties
-        va = torch.rand(P, A, generator=g) > 0.2
-        vb = torch.rand(Q, B, generator=g) > 0.2
-        va[P // 2] = False                                 # all invalid
-        args = [t.to(dev) for t in (da, va, db, vb)]
-        out = hm.cross_check(*args, site="check")
+        args = hamming_inputs((P, A, Q, B), dev, seed)
         ref = hm.cross_check_plain(*args)
+        outs = [hm.cross_check(*args, site="check")
+                for _ in range(K1_CHECK_LAUNCHES)]
         torch.cuda.synchronize()
         err = max((o.to(torch.int64) - r.to(torch.int64)).abs().max().item()
-                  for o, r in zip(out, ref))
-        for name, o, r in zip(("best_b", "matched", "best_d"), out, ref):
-            check(torch.equal(o, r), f"K1 {name} differs from its plain "
-                  f"version at {(P, A, Q, B)}")
+                  for out in outs for o, r in zip(out, ref))
+        for i, out in enumerate(outs):
+            for name, o, r in zip(("best_b", "matched", "best_d"), out, ref):
+                check(torch.equal(o, r), f"K1 {name} differs from its plain "
+                      f"version at {(P, A, Q, B)} on launch {i}")
         check(bool(ref[1].any()), f"K1 at {(P, A, Q, B)}: nothing matched")
-        ms = time_cuda(lambda: hm.cross_check(*args, site="check"), 50)
+        check(not ref[1][P // 2].any() and bool((ref[2][P // 2] == hm.BIG)
+                                                .all()),
+              f"K1 at {(P, A, Q, B)}: the all-invalid problem matched")
+        plan = hm.plan(P, A, B)
+        n_clusters = hm.max_active_clusters(plan)
+        check(n_clusters >= 1, f"K1 at {(P, A, Q, B)}: the card holds no "
+              f"cluster of the plan {plan}")
+        plan = dict(plan._asdict(), grid=plan.grid(P),
+                    max_active_clusters=n_clusters,
+                    one_wave=n_clusters >= P)
+        # the card's time from a CUDA graph of launches; eager back-to-back
+        # calls are held by the wrapper's host cost (tens of microseconds)
+        ms = time_cuda_graph(lambda: hm.cross_check(*args, site="check"),
+                             K1_TIMED_LAUNCHES)
+        floor_ms = time_cuda_graph(
+            lambda: hm.empty_launch(P, hm.plan(P, A, B)), K1_TIMED_LAUNCHES)
+        eager_ms = time_cuda(lambda: hm.cross_check(*args, site="check"),
+                             K1_TIMED_LAUNCHES)
         plain_ms = time_cuda(lambda: hm.cross_check_plain(*args), 5)
         # one distance matrix: xor + popcount + add per word pair; the
         # descriptors (int64 words) and flags read once, two int32 and a
@@ -426,11 +504,22 @@ def hamming_phase(dev):
         b_ms, b_by = bound_ms(8 * W * (P * A + Q * B) + P * A + Q * B
                               + 9 * P * A, 3 * P * A * B * W)
         rows.append(dict(shape=[P, A, Q, B, W], max_abs_err=err, ms=ms,
-                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         eager_ms=eager_ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by,
+                         launch_floor_ms=floor_ms, plan=plan,
                          matched=int(ref[1].sum())))
-        print(f"K1 {P}x{A} vs {Q}x{B}, {W} words: equal to plain "
-              f"({int(ref[1].sum())} matched), kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by})", flush=True)
+        print(f"K1 {P}x{A} vs {Q}x{B}, {W} words: {K1_CHECK_LAUNCHES} "
+              f"launches equal to plain ({int(ref[1].sum())} matched); plan: "
+              f"cluster {plan['cluster']}, band rows {plan['band_rows']} "
+              f"(padded {plan['pad_rows']}), columns {B} (padded "
+              f"{plan['pad_cols']}), "
+              f"{plan['threads']} threads, {plan['smem_bytes']} B shared, "
+              f"grid {plan['grid']}, max active clusters {n_clusters} "
+              f"({'one wave' if plan['one_wave'] else 'more than one wave'}"
+              f" for {P}); kernel {ms:.4f} ms (graph; eager calls "
+              f"{eager_ms:.4f}), launch floor {floor_ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by})",
+              flush=True)
     return rows
 
 
@@ -846,6 +935,36 @@ def pgo_phase(dev):
           f"torch.linalg.solve {solve_ms / PGO_ITERS:.4f} ms, ratio "
           f"{ms / solve_ms:.3f}", flush=True)
     return dict(checks=rows, timed=timed)
+
+
+def pgo_determinism_phase(dev):
+    """The port's dense ``optimize_pose_graph`` (the path ``run_slam`` takes
+    below 400 poses: normal equations assembled with
+    ``index_put_(accumulate=True)`` and ``index_add_``) on the unreduced
+    two-lap graph (240 poses, 4 loops), PGO_DETERMINISM_RUNS times on the
+    card, every run bit-equal to the first."""
+    import torch
+    from nclt_slam_tpu_torch.datasets.slam import loop_closure as lc
+
+    graph, gt = two_lap_graph()
+    graph = lc.PoseGraph2D(*(torch.from_numpy(a).to(dev) for a in graph))
+    runs = [lc.optimize_pose_graph(graph, iters=15)
+            for _ in range(PGO_DETERMINISM_RUNS)]
+    torch.cuda.synchronize()
+    diffs = [i for i, r in enumerate(runs[1:], 1)
+             if not torch.equal(r, runs[0])]
+    gap = max((r - runs[0]).abs().max().item() for r in runs)
+    check(torch.isfinite(runs[0]).all().item(), "dense PGO: non-finite")
+    check(not diffs, f"dense PGO: runs {diffs} differ from the first by up "
+          f"to {gap}")
+    err = (runs[0][:, :2].cpu().double()
+           - torch.from_numpy(gt[:, :2])).norm(dim=1).max().item()
+    stats = dict(poses=graph.poses.shape[0], loops=int(graph.loop_valid.sum()),
+                 runs=PGO_DETERMINISM_RUNS, bit_equal=True,
+                 max_position_err_m=err)
+    print("pgo_determinism: dense optimize_pose_graph bit-equal over "
+          f"{PGO_DETERMINISM_RUNS} runs " + json.dumps(stats), flush=True)
+    return stats
 
 
 @contextlib.contextmanager
@@ -1727,12 +1846,11 @@ def determinism_phase(data, teach, wps, n_wps, cfg):
     return stats
 
 
-def profile_window(fn, kernel=None):
+def profile_window(fn, kernels=()):
     """Run ``fn`` under torch.profiler: (kernel launches, device busy
-    seconds, wall seconds), and with ``kernel`` (a part of a kernel's
-    name) that kernel's (launches, device seconds) as a fourth item.
-    Launches count ``cudaLaunchKernel`` and ``cudaLaunchKernelExC`` (a
-    cluster launch)."""
+    seconds, wall seconds), and with ``kernels`` (parts of kernels' names)
+    a fourth item, each name's (launches, device seconds).  Launches count
+    ``cudaLaunchKernel`` and ``cudaLaunchKernelExC`` (a cluster launch)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1749,12 +1867,14 @@ def profile_window(fn, kernel=None):
     on_card = [e for e in ka
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in on_card)
-    if kernel is None:
+    if not kernels:
         return launches, busy_us * 1e-6, wall
-    mine = [e for e in on_card if kernel in e.key]
-    return launches, busy_us * 1e-6, wall, (
-        sum(e.count for e in mine),
-        sum(e.self_device_time_total for e in mine) * 1e-6)
+    mine = {}
+    for name in kernels:
+        hits = [e for e in on_card if name in e.key]
+        mine[name] = (sum(e.count for e in hits),
+                      sum(e.self_device_time_total for e in hits) * 1e-6)
+    return launches, busy_us * 1e-6, wall, mine
 
 
 def ours_main_path_phase(dev):
@@ -1849,24 +1969,29 @@ def ours_main_path_phase(dev):
 
 def ours_profile_phase(shared, carry):
     """A short profiled window continuing the ours repeat: launches per
-    tick, the device's busy share and K2's device time in it.  It runs after every timed phase: once
-    the profiler has attached to the CUDA driver, launches stay slower for
-    the rest of the process."""
+    tick, the device's busy share and K2's and K1's device time in it.  It
+    runs after every timed phase: once the profiler has attached to the
+    CUDA driver, launches stay slower for the rest of the process."""
     from nclt_slam_tpu_torch import config
     from nclt_slam_tpu_torch.rollout.repeat import run_repeat
 
     data, teach, wps, n_wps = shared
-    launches, busy_s, wall, (k2_n, k2_s) = profile_window(
+    launches, busy_s, wall, mine = profile_window(
         lambda: run_repeat(
             data.scenes_repeat, data.routes, teach.teach_grid, wps, n_wps,
             config.ours(), PROFILE_TICKS, store=teach.store, carry=carry,
-            tick0=executed(OURS_REPEAT_TICKS)), kernel="relax_kernel")
+            tick0=executed(OURS_REPEAT_TICKS)),
+        kernels=("relax_kernel", "cross_check_kernel"))
+    (k2_n, k2_s), (k1_n, k1_s) = mine["relax_kernel"], \
+        mine["cross_check_kernel"]
+    check(k1_n > 0, "the ours profile window shows no K1 launch")
     stats = dict(profiled_ticks=PROFILE_TICKS,
                  profiled_ms_per_tick=wall / PROFILE_TICKS * 1e3,
                  launches_per_tick=launches / PROFILE_TICKS,
                  device_busy_share=busy_s / wall,
                  device_ms=busy_s * 1e3, k2_launches=k2_n,
-                 k2_device_ms=k2_s * 1e3)
+                 k2_device_ms=k2_s * 1e3, k1_launches=k1_n,
+                 k1_device_ms=k1_s * 1e3)
     print("ours_profile " + json.dumps(stats), flush=True)
     return stats
 
@@ -1992,6 +2117,7 @@ def run() -> int:
     k1_rows = hamming_phase(dev)
     k3 = ba_phase(dev)
     k4 = pgo_phase(dev)
+    pgo_determinism = pgo_determinism_phase(dev)
     fixture_phase(dev)
     rgbd_ba_fixture_phase(ours_fixture_phase(dev), dev)
     slam_fixture_phase(dev)
@@ -2001,7 +2127,7 @@ def run() -> int:
     ours, shared, ours_carry = ours_main_path_phase(dev)
     rgbd_ba = rgbd_ba_main_path_phase(shared, dev)
     slam = slam_main_path_phase(dev, card)
-    ours_profile_phase(shared, ours_carry)
+    ours_profile = ours_profile_phase(shared, ours_carry)
     slam_profile_phase(dev)
 
     window, coarse = k2_rows
@@ -2025,10 +2151,20 @@ def run() -> int:
             "shape": vio_row["shape"],
             "launches_by_path": {"ours": ours["launches"]["k1_sites"],
                                  "rgbd_ba": rgbd_ba["launches"]["k1_sites"]},
+            "plan": vio_row["plan"],
+            "launch_floor_ms": vio_row["launch_floor_ms"],
+            "eager_ms": vio_row["eager_ms"],
             "matcher_shape": matcher_row["shape"],
             "matcher_ms": matcher_row["ms"],
             "matcher_plain_ms": matcher_row["plain_ms"],
             "matcher_bound_ms": matcher_row["bound_ms"],
+            "matcher_plan": matcher_row["plan"],
+            "matcher_launch_floor_ms": matcher_row["launch_floor_ms"],
+            "matcher_eager_ms": matcher_row["eager_ms"],
+            "ours_profile_window": {
+                "ticks": PROFILE_TICKS,
+                "launches": ours_profile["k1_launches"],
+                "device_ms": ours_profile["k1_device_ms"]},
         },
         {
             "name": "wavefront_relax",
@@ -2096,6 +2232,7 @@ def run() -> int:
             "kernel_over_linalg_solve":
                 k4["timed"]["kernel_over_linalg_solve"],
             "checks": k4["checks"],
+            "dense_pgo_determinism": pgo_determinism,
         }]}
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)

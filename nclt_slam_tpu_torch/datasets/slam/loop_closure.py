@@ -218,7 +218,12 @@ def _normal_equations(poses, anchor, ei, ej, meas, w, prior_w, damping,
                       wrap):
     """Dense pose-major normal equations (H (3K, 3K), g (3K,)) of the
     weighted edges ei -> ej, a prior of weight prior_w pinning pose 0 at
-    ``anchor`` and damping on the diagonal."""
+    ``anchor`` and damping on the diagonal.
+
+    Both are assembled with ``index_put_(accumulate=True)``, which on CUDA
+    sorts the indices (stably) and sums each index's values in that order,
+    without atomics: two runs give the same bits.  ``index_add_`` adds with
+    float atomics there, in an order that changes from run to run."""
     K = poses.shape[0]
     N = 3 * K
     r, Ji, Jj = _rel_residual(poses[ei], poses[ej], meas, wrap)
@@ -238,8 +243,9 @@ def _normal_equations(poses, anchor, ei, ej, meas, w, prior_w, damping,
     gi = (w3 * Ji.transpose(1, 2) @ r[..., None])[..., 0]
     gj = (w3 * Jj.transpose(1, 2) @ r[..., None])[..., 0]
     grows = 3 * torch.cat([ei, ej])[:, None] + c3
-    g = poses.new_zeros(N).index_add_(0, grows.reshape(-1),
-                                      torch.cat([gi, gj]).reshape(-1))
+    g = poses.new_zeros(N).index_put_((grows.reshape(-1),),
+                                      torch.cat([gi, gj]).reshape(-1),
+                                      accumulate=True)
     diag = torch.full((N,), damping, dtype=poses.dtype, device=poses.device)
     diag[:3] += prior_w
     g[:3] += prior_w * (poses[0] - anchor)

@@ -23,6 +23,16 @@ On a CUDA tensor the wrapper launches ``csrc/hamming.cu`` (built with
 on the CPU.  Both are bit-exact with the JAX package's XLA path and Pallas
 kernel.  Each launch adds one to ``cross_check.launches`` and to the count
 of its call site in ``cross_check.site_launches``.
+
+The kernel matches each problem with a cluster of ``Plan.cluster`` thread
+blocks: rank r takes the band of ``ceil(A / C)`` a-rows from
+``r * ceil(A / C)``, computes each distance of its band once on the tensor
+cores (``popc(a) + popc(b) - 2 popc(a & b)``), and merges its partial
+column keys into every rank's copy through distributed shared memory
+before the mutual test (see the source's header).  ``plan`` is that plan.
+It takes every shape that ``_check`` accepts: 8-word descriptors and
+``max(A, B) <= 2146`` (the int32 keys), which holds the first kernel's
+envelope, ``(A + B) * 37 <= 232448`` bytes of shared memory, and more.
 """
 
 from __future__ import annotations
@@ -30,6 +40,7 @@ from __future__ import annotations
 import ctypes
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -38,7 +49,6 @@ from nclt_slam_tpu_torch.ops import build
 BIG = 10 ** 6
 INT32_MAX = 2 ** 31 - 1
 WORDS = 8          # the kernel's descriptor width (256 bits)
-MAX_THREADS = 1024
 MAX_SMEM_BYTES = 232448
 
 SOURCE = build.CSRC / "hamming.cu"
@@ -119,8 +129,59 @@ def _check(desc_a, valid_a, desc_b, valid_b):
         raise ValueError(f"cross_check: {n} rows overflow the int32 keys")
 
 
-def _smem_bytes(A: int, B: int, W: int) -> int:
-    return (A + B) * W * 4 + (A + B) * 4 + (A + B)
+# The kernel's plan (see csrc/hamming.cu): a cluster of C blocks a
+# problem, rank r owning the band of ceil(A / C) a-rows from r * ceil(A / C)
+# and a full copy of the column keys merged over the cluster.
+CLUSTER_SIZES = (1, 2, 4, 8)
+CHUNK_ROWS = 32            # band rows a chunk: two 16-row MMA tiles
+TILE_COLS = 8              # b columns an MMA tile
+MAX_WARPS = 8              # csrc/hamming.cu: __launch_bounds__(256)
+
+
+class Plan(NamedTuple):
+    """How the kernel matches P problems of A a-rows against B b-rows."""
+    cluster: int      # C blocks a problem, one band of a-rows each
+    band_rows: int    # R = ceil(A / C)
+    pad_rows: int     # the band padded to whole 32-row chunks
+    pad_cols: int     # B padded to the 8-column MMA tile
+    threads: int      # a block: a warp for each 8 columns, at most 8 warps
+    smem_bytes: int   # dynamic shared memory a block
+
+    def grid(self, P: int) -> int:
+        """Thread blocks of a launch over P problems."""
+        return P * self.cluster
+
+
+def _ceil(x: int, m: int) -> int:
+    return -(-x // m)
+
+
+def smem_bytes(pad_rows: int, pad_cols: int) -> int:
+    """Shared memory of one block: the b set and the band as 32-bit words,
+    the popcounts of each column and row, the band's row keys, its partial
+    column keys and its copy of the merged column keys."""
+    return 4 * (WORDS * (pad_cols + pad_rows) + 3 * pad_cols + 2 * pad_rows)
+
+
+def plan(P: int, A: int, B: int, cluster: int | None = None) -> Plan:
+    """The kernel's plan for P problems of A a-rows against B b-rows.
+
+    C is ``cluster`` (default 8, the fastest at both of the main path's
+    shapes on an H100: PERF.md section 6), halved while the last band would
+    be empty.  Every (A, B) that ``_check`` accepts fits: max(A, B) <= 2146
+    keeps the band, the b set and the key arrays under 190 KB of shared
+    memory."""
+    C = CLUSTER_SIZES[-1] if cluster is None else cluster
+    if C not in CLUSTER_SIZES:
+        raise ValueError(f"cross_check kernel: cluster of {C} blocks "
+                         f"(takes {CLUSTER_SIZES})")
+    while C > 1 and (C - 1) * _ceil(A, C) >= A:
+        C //= 2
+    R = _ceil(A, C)
+    Rp = _ceil(max(R, 1), CHUNK_ROWS) * CHUNK_ROWS
+    Bp = _ceil(B, TILE_COLS) * TILE_COLS
+    threads = 32 * max(1, min(MAX_WARPS, Bp // TILE_COLS))
+    return Plan(C, R, Rp, Bp, threads, smem_bytes(Rp, Bp))
 
 
 _lib = None
@@ -133,24 +194,92 @@ def build_library() -> Path:
     return build.build_library(SOURCE)
 
 
+def bind(lib):
+    """Set the argument types of ``lib``'s entry points (a build of
+    ``csrc/hamming.cu``)."""
+    fn = lib.hamming_cross_check
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 12
+                   + [ctypes.c_void_p] * 4)
+    fn.restype = ctypes.c_int
+    occ = lib.hamming_max_active_clusters
+    occ.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    occ.restype = ctypes.c_int
+    empty = lib.hamming_empty_launch
+    empty.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    empty.restype = ctypes.c_int
+    return lib
+
+
 def _load():
     global _lib
     with _lib_lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build_library()))
-            fn = lib.hamming_cross_check
-            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                           + [ctypes.c_void_p] * 4)
-            fn.restype = ctypes.c_int
-            _lib = lib
+            _lib = bind(ctypes.CDLL(str(build_library())))
     return _lib
+
+
+def _aligned(t):
+    """``t`` contiguous with its data 16-byte aligned (the kernel loads the
+    descriptors 16 bytes at a time)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def launch(desc_a, valid_a, desc_b, valid_b, max_dist: int, p: Plan,
+           lib=None):
+    """One launch of the kernel (``lib``, default the package's build) with
+    plan ``p`` on checked CUDA tensors; returns (best_b, matched, best_d).
+    Counts nothing: ``cross_check`` is the entry point."""
+    P, A, W = desc_a.shape
+    Q, B, _ = desc_b.shape
+    dev = desc_a.device
+    best_b = torch.empty(P, A, dtype=torch.int32, device=dev)
+    best_d = torch.empty(P, A, dtype=torch.int32, device=dev)
+    matched = torch.empty(P, A, dtype=torch.bool, device=dev)
+    tensors = [_aligned(desc_a), valid_a.contiguous(), _aligned(desc_b),
+               valid_b.contiguous()]
+    lib = _load() if lib is None else lib
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.hamming_cross_check(
+            *(t.data_ptr() for t in tensors), P, A, B, W, P // Q,
+            int(max_dist), p.cluster, p.band_rows, p.pad_rows, p.pad_cols,
+            p.threads, p.smem_bytes, best_b.data_ptr(), matched.data_ptr(),
+            best_d.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"cross_check kernel launch failed: CUDA error "
+                           f"{err}")
+    return best_b, matched, best_d
+
+
+def max_active_clusters(p: Plan) -> int:
+    """Clusters of plan ``p`` the card holds at once: the problems of one
+    launch run in one wave when there are no more of them than this."""
+    n = ctypes.c_int(0)
+    err = _load().hamming_max_active_clusters(
+        p.cluster, p.threads, p.smem_bytes, ctypes.byref(n))
+    if err != 0:
+        raise RuntimeError(f"cudaOccupancyMaxActiveClusters failed: CUDA "
+                           f"error {err}")
+    return n.value
+
+
+def empty_launch(P: int, p: Plan):
+    """Launch an empty kernel with the grid, cluster, block and shared
+    memory of a cross-check launch of P problems under plan ``p``: the
+    launch floor."""
+    err = _load().hamming_empty_launch(
+        P, p.cluster, p.threads, p.smem_bytes,
+        torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"empty kernel launch failed: CUDA error {err}")
 
 
 def cross_check(desc_a, valid_a, desc_b, valid_b, max_dist: int = 64,
                 site: str = "other"):
     """(best_b, matched, best_d), each (P, A).  CUDA tensors go through the
-    hand-written kernel (one block per problem); CPU tensors through
-    ``cross_check_plain``.  ``site`` names the caller in
+    hand-written kernel (a cluster of blocks a problem, see ``plan``); CPU
+    tensors through ``cross_check_plain``.  ``site`` names the caller in
     ``cross_check.site_launches``."""
     _check(desc_a, valid_a, desc_b, valid_b)
     dev = desc_a.device
@@ -162,31 +291,16 @@ def cross_check(desc_a, valid_a, desc_b, valid_b, max_dist: int = 64,
     Q, B, _ = desc_b.shape
     if W != WORDS:
         raise ValueError(f"cross_check kernel: {W} words (it takes {WORDS})")
-    if _smem_bytes(A, B, W) > MAX_SMEM_BYTES:
-        raise ValueError(f"cross_check kernel: ({A}, {B}) sets do not fit "
-                         "shared memory")
-    best_b = torch.empty(P, A, dtype=torch.int32, device=dev)
-    best_d = torch.empty(P, A, dtype=torch.int32, device=dev)
-    matched = torch.empty(P, A, dtype=torch.bool, device=dev)
     if P == 0 or A == 0:
-        return best_b, matched, best_d
+        return (torch.empty(P, A, dtype=torch.int32, device=dev),
+                torch.empty(P, A, dtype=torch.bool, device=dev),
+                torch.empty(P, A, dtype=torch.int32, device=dev))
     if B == 0:
         raise ValueError("cross_check: empty b set")
-    tensors = [t.contiguous() for t in (desc_a, valid_a, desc_b, valid_b)]
-    threads = min(MAX_THREADS, -(-max(A, B) // 32) * 32)
-    lib = _load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.hamming_cross_check(
-            *(t.data_ptr() for t in tensors), P, A, B, W, P // Q,
-            int(max_dist), threads, best_b.data_ptr(), matched.data_ptr(),
-            best_d.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"cross_check kernel launch failed: CUDA error "
-                           f"{err}")
+    out = launch(desc_a, valid_a, desc_b, valid_b, max_dist, plan(P, A, B))
     cross_check.launches += 1
     cross_check.site_launches[site] = cross_check.site_launches.get(site, 0) + 1
-    return best_b, matched, best_d
+    return out
 
 
 def reset_launches():

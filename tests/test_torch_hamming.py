@@ -139,3 +139,199 @@ def test_popcount_is_exact():
     got = thm.popcount32(torch.from_numpy(r.astype(np.int64))).numpy()
     assert np.array_equal(got, np.asarray(jax.lax.population_count(
         jnp.asarray(r.astype(np.uint32)))))
+
+
+# ---------------------------------------------------------------------------
+# the kernel's plan and its schedule, rehearsed on the CPU
+# ---------------------------------------------------------------------------
+
+INT32_MAX = 2 ** 31 - 1
+# the main path's three shapes (P, A, Q, B), as chip_smoke.py's HAMMING_SHAPES
+MAIN_SHAPES = [(15, 256, 15, 384), (75, 256, 75, 256), (75, 256, 15, 256)]
+
+
+def _schedule_model(da, va, db, vb, max_dist, plan):
+    """csrc/hamming.cu's schedule on the CPU, block for block: per problem
+    and rank r the band of ``plan.band_rows`` a-rows from r * band_rows,
+    padded to ``pad_rows`` rows (whole 32-row chunks) and B to ``pad_cols``
+    columns (zero words, popc -1024); each distance once, as popc(a) +
+    popc(b) - 2 popc(a & b) on the 16 x 8 tiles, masked by min(unsigned,
+    BIG); padded keys INT32_MAX; the band's row keys as the min over the
+    warps' n-tiles (warp w: n-tiles w, w + NW, ...) and each chunk's, its
+    partial column keys as the min over the chunks of each n-tile's column
+    minimum over the chunk; every rank's partial column keys merged, rank
+    by rank, into every rank's copy; the mutual test from the rank's own
+    copy."""
+    P, A, _ = da.shape
+    Q, B, _ = db.shape
+    grp = P // Q
+    C, R, Rp, Bp = plan.cluster, plan.band_rows, plan.pad_rows, plan.pad_cols
+    nw = plan.threads // 32
+    a32, b32 = thm._as_int32(da), thm._as_int32(db)
+    big, inval = thm.BIG, -1024
+    best_b = torch.empty(P, A, dtype=torch.int64)
+    best_d = torch.empty(P, A, dtype=torch.int64)
+    matched = torch.empty(P, A, dtype=torch.bool)
+    col_idx = torch.arange(Bp)
+    for p in range(P):
+        q = p // grp
+        sb = torch.zeros(Bp, thm.WORDS, dtype=torch.int32)
+        sb[:B] = b32[q]
+        pb = torch.full((Bp,), inval, dtype=torch.int64)
+        pb[:B] = torch.where(vb[q], thm.popcount32(b32[q]).sum(-1), inval)
+        colkey = [torch.full((Bp,), INT32_MAX, dtype=torch.int64)
+                  for _ in range(C)]
+        bands = []
+        for r in range(C):
+            a0 = r * R
+            nr = max(0, min(R, A - a0))
+            if nr == 0:
+                bands.append(None)
+                continue
+            sa = torch.zeros(Rp, thm.WORDS, dtype=torch.int32)
+            sa[:nr] = a32[p, a0:a0 + nr]
+            pa = torch.full((Rp,), inval, dtype=torch.int64)
+            pa[:nr] = torch.where(va[p, a0:a0 + nr],
+                                  thm.popcount32(sa[:nr]).sum(-1), inval)
+            both = thm.popcount32(sa[:, None, :] & sb[None, :, :]).sum(-1)
+            s = pa[:, None] + pb[None, :] - 2 * both.to(torch.int64)
+            dm = torch.where(s < 0, big, s.clamp(max=big))   # unsigned min
+            rk = dm * B + col_idx
+            rk[:, B:] = INT32_MAX
+            ck = dm * A + (a0 + torch.arange(Rp))[:, None]
+            ck[nr:] = INT32_MAX
+            assert rk.max() <= INT32_MAX and ck.max() <= INT32_MAX
+            tiles = rk.reshape(Rp, Bp // 8, 8)
+            rowkey = torch.stack([tiles[:, w::nw].amin((1, 2))
+                                  if tiles[:, w::nw].numel() else
+                                  torch.full((Rp,), INT32_MAX)
+                                  for w in range(nw)]).amin(0)
+            cpart = ck.reshape(Rp // 32, 32, Bp).amin(1).amin(0)
+            for k in range(C):
+                colkey[k][:B] = torch.minimum(colkey[k][:B], cpart[:B])
+            bands.append((r, a0, nr, rowkey[:nr]))
+        for band in bands:
+            if band is None:
+                continue
+            r, a0, nr, rowkey = band
+            bb, d = rowkey % B, rowkey // B
+            ck = colkey[r][bb]
+            a = a0 + torch.arange(nr)
+            best_b[p, a], best_d[p, a] = bb, d
+            matched[p, a] = (ck == d * A + a) & (d <= max_dist) & (d < big)
+    return best_b.to(torch.int32), matched, best_d.to(torch.int32)
+
+
+def _schedule_case(name):
+    """(desc_a, valid_a, desc_b, valid_b) of a rehearsal case, numpy."""
+    rng = np.random.RandomState(sum(map(ord, name)))
+    if name == "7x5":
+        probs = [_problem(rng, 7, 5)]
+        grp = 1
+    elif name == "1000x300_group2":
+        probs = [_problem(rng, 1000, 300) for _ in range(4)]
+        grp = 2
+    elif name == "all_invalid":
+        probs = [_problem(rng, 40, 70) for _ in range(3)]
+        probs[1] = (probs[1][0], np.zeros(40, bool)) + probs[1][2:]
+        grp = 1
+    elif name == "identical_rows":
+        # every a-row and b-row the same word pattern: every distance ties
+        row = rng.randint(0, 2 ** 32, 8, dtype=np.uint64).astype(np.uint32)
+        probs = [(np.tile(row, (33, 1)), np.ones(33, bool),
+                  np.tile(row, (65, 1)), np.ones(65, bool))]
+        grp = 1
+    else:
+        P, A, Q, B = MAIN_SHAPES[int(name[-1])]
+        grp = P // Q
+        probs = [_problem(rng, A, B) for _ in range(P)]
+        probs[P // 2] = (probs[P // 2][0], np.zeros(A, bool)) + \
+            probs[P // 2][2:]
+    da, va, db, vb = (np.stack(x) for x in zip(*probs))
+    return da, va, db[::grp], vb[::grp]
+
+
+SCHEDULE_CASES = ["7x5", "1000x300_group2", "all_invalid", "identical_rows",
+                  "main_0", "main_1", "main_2"]
+
+
+@pytest.mark.parametrize("case", SCHEDULE_CASES)
+def test_kernel_schedule_equals_plain_and_pallas(case):
+    da, va, db, vb = _schedule_case(case)
+    P, A = va.shape
+    Q, B = vb.shape
+    plan = thm.plan(P, A, B)
+    args = [_t(x) for x in (da, va, db, vb)]
+    got = _schedule_model(*args, 64, plan)
+    ref = thm.cross_check_plain(*args, 64)
+    for g, r, name in zip(got, ref, ("best_b", "matched", "best_d")):
+        assert torch.equal(g, r), name
+    if case == "all_invalid":
+        assert not got[1][1].any() and (got[0][1] == 0).all()
+        assert (got[2][1] == thm.BIG).all()
+    if case == "identical_rows":
+        assert (got[2] == 0).all() and (got[0] == 0).all()
+        assert got[1][0, 0] and not got[1][0, 1:].any()
+    grp = P // Q
+    for p in sorted({0, P // 2, P - 1}):
+        pal = cross_check_pallas(
+            jnp.asarray(da[p]), jnp.asarray(va[p]), jnp.asarray(db[p // grp]),
+            jnp.asarray(vb[p // grp]), max_dist=64, interpret=True)
+        for g, x in zip(got, pal):
+            assert np.array_equal(g[p].numpy(), np.asarray(x).astype(
+                g.numpy().dtype))
+
+
+def test_popcount_identity_with_top_bit():
+    """popc(a) + popc(b) - 2 popc(a & b) == popc(a ^ b) on int32-held words,
+    the sign bit set in either or both."""
+    words = np.array([0, 1, 0x80000000, 0xFFFFFFFF, 0x7FFFFFFF, 0xC0000001,
+                      0xDEADBEEF, 0x12345678], np.uint64)
+    rng = np.random.RandomState(5)
+    words = np.concatenate([words, rng.randint(2 ** 31, 2 ** 32, 200,
+                                               dtype=np.uint64)])
+    a = thm._as_int32(torch.from_numpy(words.astype(np.int64)))
+    x, y = a[:, None], a[None, :]
+    pc = thm.popcount32
+    assert torch.equal(pc(x) + pc(y) - 2 * pc(x & y), pc(x ^ y))
+    assert (pc(a) == torch.tensor([bin(int(w)).count("1")
+                                   for w in words])).all()
+
+
+# the main path's shapes, the card tests' shapes and the corners of the
+# first kernel's envelope: (A + B) * 37 bytes <= 232448 and the int32 keys
+# (BIG * n + n <= INT32_MAX: n <= 2146)
+PLAN_SHAPES = [(15, 256, 384), (75, 256, 256), (3, 7, 5), (4, 1000, 300),
+               (2, 33, 65), (1, 1, 1), (1, 2146, 2146), (1, 1, 2146),
+               (1, 2146, 1), (200, 2146, 2146), (1, 17, 9), (9, 8, 8)]
+
+
+@pytest.mark.parametrize("P, A, B", PLAN_SHAPES)
+def test_kernel_plan(P, A, B):
+    p = thm.plan(P, A, B)
+    C, R = p.cluster, p.band_rows
+    assert C in thm.CLUSTER_SIZES and p.grid(P) == P * C
+    # the bands cover every a-row once, in rank order, the last one too
+    bands = [range(k * R, min((k + 1) * R, A)) for k in range(C)]
+    assert [a for band in bands for a in band] == list(range(A))
+    assert len(bands[-1]) > 0
+    assert p.pad_rows % 32 == 0 and R <= p.pad_rows < R + 32
+    assert p.pad_cols % 8 == 0 and B <= p.pad_cols < B + 8
+    # a warp for each 8 columns, at most 8 warps (__launch_bounds__(256))
+    assert p.threads == 32 * min(8, p.pad_cols // 8)
+    assert p.smem_bytes == thm.smem_bytes(p.pad_rows,
+                                          p.pad_cols) <= thm.MAX_SMEM_BYTES
+    # every real key fits an int32
+    n = max(A, B)
+    assert thm.BIG * n + n - 1 <= INT32_MAX
+    if (P, A, B) == (15, 256, 384):       # the VIO call: 120 blocks
+        assert (C, R, p.pad_rows, p.pad_cols) == (8, 32, 32, 384)
+    if (P, A, B) == (75, 256, 256):       # the matcher call: 600 blocks
+        assert (C, R, p.pad_rows, p.pad_cols) == (8, 32, 32, 256)
+
+
+def test_kernel_plan_cluster_override():
+    assert thm.plan(75, 256, 256, cluster=2).cluster == 2
+    assert thm.plan(1, 3, 9, cluster=8).cluster == 2     # no empty band
+    with pytest.raises(ValueError):
+        thm.plan(1, 8, 8, cluster=3)

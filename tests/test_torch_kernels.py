@@ -81,24 +81,41 @@ def _descriptors(rng, P, A, W=8):
     return torch.from_numpy(d)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(15, 256, 384, 1), (75, 256, 256, 5),
-                                   (3, 7, 5, 1), (4, 1000, 300, 2),
-                                   (2, 33, 65, 1)])
-def test_hamming_kernel_equals_plain(cuda, shape):
-    from nclt_slam_tpu_torch.ops import hamming as hm
-
+def _hamming_case(shape):
+    """(da, va, db, vb) on the CPU at (P, A, B, group): random words, b rows
+    shared with and one bit off the a rows (ties and matches), ~20 %
+    invalid rows and, where P > 1, an all-invalid problem."""
     P, A, B, group = shape
     rng = np.random.RandomState(P * A + B)
     da = _descriptors(rng, P, A)
     db = _descriptors(rng, P // group, B)
-    # shared and near-shared rows so that ties and matches occur
-    n = min(A, B) // 2
+    n = max(1, min(A, B) // 2)
     db[:, :n] = da[::group, :n]
     db[:, n:n + n // 2] = da[::group, n:n + n // 2] ^ 1
     va = torch.from_numpy(rng.rand(P, A) > 0.2)
     vb = torch.from_numpy(rng.rand(P // group, B) > 0.2)
-    va[0] = False                                   # an all-invalid problem
+    if P > 1:
+        va[0] = False                               # an all-invalid problem
+    return da, va, db, vb
+
+
+# the main path's two shapes; the first kernel's test shapes; then each
+# edge of the plan: one row and one column (1, 1, 1); bands off the 32-row
+# chunk and columns off the 8-column tile, a group of 3 (6, 17, 9, 3: C =
+# 4); a last band shorter than the others (3, 7, 5: C = 4, bands of 2, 2,
+# 2 and 1); more clusters than one wave (200, 40, 70: 200 clusters of 8);
+# B > 512 (2, 9, 700); the int32 limit, with more than 48 KB of shared
+# memory (1, 2146, 2146)
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(15, 256, 384, 1), (75, 256, 256, 5),
+                                   (3, 7, 5, 1), (4, 1000, 300, 2),
+                                   (2, 33, 65, 1), (1, 1, 1, 1),
+                                   (6, 17, 9, 3), (200, 40, 70, 1),
+                                   (2, 9, 700, 1), (1, 2146, 2146, 1)])
+def test_hamming_kernel_equals_plain(cuda, shape):
+    from nclt_slam_tpu_torch.ops import hamming as hm
+
+    da, va, db, vb = _hamming_case(shape)
     ref = hm.cross_check_plain(da, va, db, vb)
     before = hm.cross_check.launches
     got = hm.cross_check(*(t.to(cuda) for t in (da, va, db, vb)),
@@ -108,6 +125,37 @@ def test_hamming_kernel_equals_plain(cuda, shape):
     for g, r in zip(got, ref):
         assert torch.equal(g.cpu(), r)
     assert ref[1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("shape", [(15, 256, 384, 1), (75, 256, 256, 5),
+                                   (2, 57, 65, 1)])
+def test_hamming_kernel_every_cluster_size(cuda, shape, cluster):
+    from nclt_slam_tpu_torch.ops import hamming as hm
+
+    da, va, db, vb = _hamming_case(shape)
+    ref = hm.cross_check_plain(da, va, db, vb)
+    P, A, B, _ = shape
+    plan = hm.plan(P, A, B, cluster=cluster)
+    assert plan.cluster == cluster
+    got = hm.launch(*(t.to(cuda) for t in (da, va, db, vb)), 64, plan)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r)
+
+
+@pytest.mark.cuda
+def test_hamming_kernel_repeated_launches(cuda):
+    # a race in the cluster merge would show as an occasional difference
+    from nclt_slam_tpu_torch.ops import hamming as hm
+
+    args = [t.to(cuda) for t in _hamming_case((15, 256, 384, 1))]
+    ref = hm.cross_check_plain(*args)
+    outs = [hm.cross_check(*args, site="test") for _ in range(20)]
+    torch.cuda.synchronize()
+    assert [i for i, out in enumerate(outs)
+            if not all(torch.equal(o, r) for o, r in zip(out, ref))] == []
 
 
 @pytest.mark.cuda

@@ -4,6 +4,7 @@ iteration's cycles go, and its time beside other builds of it.
 
     python3 tools/torch_pgo_probe.py [--against OLD.cu ...] [--no-tile-io]
                                      [--out FILE]
+    python3 tools/torch_pgo_probe.py --dense-determinism N [--out FILE]
 
 1. Instruments a copy of ``csrc/pgo.cu``: after each of the kernel's block
    barriers, thread 0 adds the ``clock64`` cycles since the previous one to
@@ -24,6 +25,13 @@ iteration's cycles go, and its time beside other builds of it.
    REV:nclt_slam_tpu_torch/csrc/pgo.cu``, built beside this tree's
    ``gauss_jordan.cuh``) at the tool's shape with CUDA events, in the order
    A B ... B A, each with its largest difference from the plain version.
+3. With ``--dense-determinism N`` (and nothing else): the dense
+   ``optimize_pose_graph`` (the path ``run_slam`` takes below 400 poses)
+   on the unreduced two-lap graph, N times, and N assemblies of its
+   gradient g from the same per-edge terms by ``index_add_`` (float
+   atomics on CUDA) and by ``index_put_(accumulate=True)`` (a sorted,
+   fixed-order sum): how many runs of each differ from the first, and by
+   how much.
 
 Needs one CUDA card; prints the card's name and power limit first.
 """
@@ -208,12 +216,50 @@ def compare(graphs, against) -> list:
     return rows
 
 
+def dense_determinism(n: int) -> dict:
+    import torch
+    from nclt_slam_tpu_torch.datasets.slam import loop_closure as lc
+
+    dev = torch.device("cuda", 0)
+    graph = lc.PoseGraph2D(*(torch.from_numpy(a).to(dev)
+                             for a in chip_smoke.two_lap_graph()[0]))
+
+    def differing(outs):
+        bad = [i for i, o in enumerate(outs) if not torch.equal(o, outs[0])]
+        return dict(differing=len(bad), of=len(outs), max_abs_diff=max(
+            (o - outs[0]).abs().max().item() for o in outs))
+
+    solves = [lc.optimize_pose_graph(graph, iters=15) for _ in range(n)]
+    ei, ej, meas, w = lc._edges(graph, 1.0, 10.0)
+    x = graph.poses
+    r, Ji, Jj = lc._rel_residual(x[ei], x[ej], meas, lc._wrap_atan2)
+    w3 = w[:, None, None]
+    gi = (w3 * Ji.transpose(1, 2) @ r[..., None])[..., 0]
+    gj = (w3 * Jj.transpose(1, 2) @ r[..., None])[..., 0]
+    rows = (3 * torch.cat([ei, ej])[:, None]
+            + torch.arange(3, device=dev)).reshape(-1)
+    vals = torch.cat([gi, gj]).reshape(-1)
+    added = [x.new_zeros(3 * x.shape[0]).index_add_(0, rows, vals)
+             for _ in range(n)]
+    put = [x.new_zeros(3 * x.shape[0]).index_put_((rows,), vals,
+                                                  accumulate=True)
+           for _ in range(n)]
+    torch.cuda.synchronize()
+    out = dict(optimize_pose_graph=differing(solves),
+               g_index_add=differing(added), g_index_put=differing(put))
+    for k, v in out.items():
+        print(f"{k}: {v['differing']} of {v['of']} runs differ from the "
+              f"first, by up to {v['max_abs_diff']:.3e}", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", nargs="*", default=[], type=Path)
     ap.add_argument("--no-tile-io", action="store_true")
+    ap.add_argument("--dense-determinism", type=int, metavar="N")
     ap.add_argument("--out", type=Path)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -221,9 +267,14 @@ def main() -> int:
         return 2
     card = chip_smoke.card_line()
     print(f"card: {card}", flush=True)
-    graphs = chip_smoke.pgo_graphs(torch.device("cuda", 0))
-    result = dict(card=card, phases=phases(graphs),
-                  times=compare(graphs, args.against))
+    if args.dense_determinism:
+        result = dict(card=card,
+                      dense_determinism=dense_determinism(
+                          args.dense_determinism))
+    else:
+        graphs = chip_smoke.pgo_graphs(torch.device("cuda", 0))
+        result = dict(card=card, phases=phases(graphs),
+                      times=compare(graphs, args.against))
     if args.no_tile_io:
         result["phases_no_tile_io"] = phases(graphs, no_tile_io=True)
     if args.out:
