@@ -29,9 +29,15 @@ Phases, each of which must pass (any failure exits non-zero):
    consistent windows (observations are projections of true points, so both
    solvers reach one optimum) by tolerance, at four shapes up to the
    rollout's 15 windows x 16 keyframes x 192 landmarks x 3 iterations; both
-   must reach the generator's truth; time it at the rollout's shape and, on
-   the batch benchmark's random windows, at 64 x 16 x 192 x 8 iterations
-   and the benchmark's sweep shapes;
+   must reach the generator's truth; print its plan (a cluster of blocks a
+   window: landmarks a rank and a chunk, keyframes a band, shared memory,
+   the clusters the card holds at once) and time it from a CUDA graph,
+   eagerly, beside an empty kernel of the same launch and the host cost a
+   call, at the rollout's shape and, on the batch benchmark's random
+   windows, at 64 x 16 x 192 x 8 iterations and the benchmark's sweep
+   shapes (two launches bit-equal at each); beside them, as a side figure,
+   ``torch.linalg.cholesky_ex`` + ``torch.cholesky_solve`` of the
+   rollout's reduced systems;
 5b. hold the pose-graph kernel (K4) against its plain version in float32
    and float64 by tolerance on four reduced graphs (the JAX package's
    two-lap test graph; the fused route's padded graph at the SLAM tool's
@@ -153,9 +159,11 @@ BA_ROLLOUT = BA_SHAPES[-1]
 BA_BENCH = (64, 16, 192, 8)           # the batch benchmark's call
 BA_SWEEP = ((64, 10, 48, 8), (64, 10, 128, 8), (32, 16, 256, 8),
             (8, 24, 512, 8))
-# K3 and its plain version differ in the reduced solve (Gauss-Jordan against
-# Cholesky) and in summation order: they agree by tolerance on consistent
-# windows (the JAX package's tests/test_ba_pallas.py), not bit for bit
+# K3 and its plain version both solve the reduced system by an unpivoted
+# Cholesky and differ in summation order only (the kernel sums a landmark
+# slice a cluster rank, then the ranks): they agree by tolerance on
+# consistent windows (the JAX package's tests/test_ba_pallas.py), not bit
+# for bit
 BA_POS_ATOL_M = 2e-4
 BA_QUAT_ATOL = 2e-5
 BA_PTS_ATOL_M = 1e-3
@@ -707,12 +715,67 @@ def ba_bound(prob, iters):
     return bound_ms(4 * (n_in + n_out), ba_ops_per_iter(prob.obs_w) * iters)
 
 
+def host_us_per_call(fn, calls: int = 200) -> float:
+    """Host microseconds a call of ``fn`` takes with no synchronisation:
+    the checks, the plan, the allocations and the launch."""
+    import torch
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def library_cholesky_ms(prob, iters):
+    """A side figure for K3's reduced solve: the ms of
+    ``torch.linalg.cholesky_ex`` + ``torch.cholesky_solve`` on the reduced
+    systems that ``solve_ba_plain`` forms on ``prob`` (one batch of B
+    systems an iteration, ``iters`` of them), captured from its calls."""
+    import torch
+    from nclt_slam_tpu_torch import config
+    from nclt_slam_tpu_torch.vio import ba
+
+    systems = []
+    chol, solve = torch.linalg.cholesky_ex, torch.cholesky_solve
+
+    def keep_chol(S, *a, **k):
+        systems.append([S.clone()])
+        return chol(S, *a, **k)
+
+    def keep_solve(b, L, *a, **k):
+        systems[-1].append(b.clone())
+        return solve(b, L, *a, **k)
+
+    torch.linalg.cholesky_ex, torch.cholesky_solve = keep_chol, keep_solve
+    try:
+        ba.solve_ba_plain(prob, config.DEFAULT.camera, config.DEFAULT.vio,
+                          iters=iters)
+    finally:
+        torch.linalg.cholesky_ex, torch.cholesky_solve = chol, solve
+    check(len(systems) == iters, "K3 side figure: the plain version's "
+          f"solves were not captured ({len(systems)} of {iters})")
+
+    def run():
+        for S, b in systems:
+            L, _ = chol(S)
+            solve(b, L)
+    return time_cuda(run, 20)
+
+
 def ba_phase(dev):
     """K3 against its plain version on consistent windows, then its times
-    at the rollout's and the batch benchmark's shapes."""
+    at the rollout's and the batch benchmark's shapes: from a CUDA graph,
+    eagerly, the launch floor, the host cost a call, the plain version,
+    the bound and the plan; beside them the library's Cholesky of the
+    rollout's reduced systems."""
     import numpy as np
     import torch
     from nclt_slam_tpu_torch import config
+    from nclt_slam_tpu_torch.ops import ba as ops_ba
     from nclt_slam_tpu_torch.vio import ba
 
     cam, vcfg = config.DEFAULT.camera, config.DEFAULT.vio
@@ -759,25 +822,56 @@ def ba_phase(dev):
 
     def timed(name, prob, B, K, P, iters, reps):
         out = ba.solve_ba(prob, cam, vcfg, iters=iters, site="check")
+        again = ba.solve_ba(prob, cam, vcfg, iters=iters, site="check")
         first = ba.solve_ba(prob, cam, vcfg, iters=1, site="check")
         torch.cuda.synchronize()
         check(all(torch.isfinite(x).all().item() for x in out),
               f"K3 {name}: non-finite output")
+        check(all(torch.equal(a, b) for a, b in zip(out, again)),
+              f"K3 {name}: two launches differ")
         check((out.final_cost <= first.final_cost).all().item(),
               f"K3 {name}: the cost rose over {iters} iterations")
-        ms = time_cuda(lambda: ba.solve_ba(prob, cam, vcfg, iters=iters,
-                                           site="check"), reps)
+        plan = ops_ba.plan(B, K, P)
+        check(ops_ba.kernel_smem_bytes(plan, K) == plan.smem_bytes,
+              f"K3 {name}: the plan's shared memory differs from the "
+              "kernel's count")
+        n_clusters = ops_ba.max_active_clusters(plan)
+        check(n_clusters >= 1, f"K3 {name}: the card holds no cluster of "
+              f"the plan {plan}")
+        plan_row = dict(plan._asdict(), grid=plan.grid(B),
+                        max_active_clusters=n_clusters,
+                        one_wave=n_clusters >= B)
+        # the card's time from a CUDA graph of launches; eager calls are
+        # held by the wrapper's host cost where that is longer
+        ms = time_cuda_graph(lambda: ba.solve_ba(prob, cam, vcfg, iters=iters,
+                                                 site="check"), reps)
+        eager_ms = time_cuda(lambda: ba.solve_ba(prob, cam, vcfg,
+                                                 iters=iters, site="check"),
+                             reps)
+        floor_ms = time_cuda_graph(lambda: ops_ba.empty_launch(B, plan), reps)
+        host_us = host_us_per_call(lambda: ba.solve_ba(
+            prob, cam, vcfg, iters=iters, site="check"))
         plain_ms = time_cuda(lambda: ba.solve_ba_plain(prob, cam, vcfg,
                                                        iters=iters), 3)
         b_ms, b_by = ba_bound(prob, iters)
         dense_ms = ba_flops_per_iter(K, P) * iters * B / PEAK_OPS_PER_S * 1e3
-        row = dict(shape=[B, K, P, iters], ms=ms, plain_ms=plain_ms,
-                   bound_ms=b_ms, bound_by=b_by, solves_per_s=B / ms * 1e3,
+        row = dict(shape=[B, K, P, iters], ms=ms, eager_ms=eager_ms,
+                   launch_floor_ms=floor_ms, host_us_per_call=host_us,
+                   plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                   solves_per_s=B / ms * 1e3, plan=plan_row,
                    observed_frac=(prob.obs_w > 0).float().mean().item(),
                    dense_count_ms=dense_ms)
-        print(f"K3 {name} {B}x{K}x{P} x{iters}: kernel {ms:.3f} ms "
-              f"({row['solves_per_s']:.0f} solves/s), plain {plain_ms:.2f} "
-              f"ms, bound {b_ms:.5f} ms ({b_by}; "
+        print(f"K3 {name} {B}x{K}x{P} x{iters}: plan: cluster "
+              f"{plan.cluster}, {plan.landmarks_per_rank} landmarks a rank "
+              f"({plan.chunk} a chunk, Bs^T of {plan.kept} kept), "
+              f"{plan.keyframes_per_rank} keyframes "
+              f"a band, {plan.threads} threads, {plan.smem_bytes} B shared, "
+              f"grid {plan.grid(B)}, max active clusters {n_clusters} "
+              f"({'one wave' if plan_row['one_wave'] else 'more than one'}"
+              f"); kernel {ms:.4f} ms (graph; eager calls {eager_ms:.4f}; "
+              f"{row['solves_per_s']:.0f} solves/s), launch floor "
+              f"{floor_ms:.4f} ms, {host_us:.1f} us host a call, plain "
+              f"{plain_ms:.2f} ms, bound {b_ms:.5f} ms ({b_by}; "
               f"{row['observed_frac']:.2f} of the observations present; the "
               f"JAX benchmark's dense count gives {dense_ms:.4f} ms)",
               flush=True)
@@ -788,6 +882,11 @@ def ba_phase(dev):
                                  prior=prior)
     rollout = timed("rollout", prob, B, K, P, iters, 50)
     rollout["max_abs_err"] = rows[-1]["max_abs_err"]
+    rollout["library_cholesky_ms"] = library_cholesky_ms(prob, iters)
+    print(f"K3 side figure: torch.linalg.cholesky_ex + torch.cholesky_solve "
+          f"of the rollout's {iters} reduced systems ({B} x {6 * K} x "
+          f"{6 * K}): {rollout['library_cholesky_ms']:.4f} ms (the kernel's "
+          f"whole solve {rollout['ms']:.4f} ms)", flush=True)
     B, K, P, iters = BA_BENCH
     bench = timed("bench", bench_windows(B, K, P, dev), B, K, P, iters, 20)
     sweep = [timed("sweep", bench_windows(B, K, P, dev), B, K, P, iters, 10)
@@ -2093,8 +2192,7 @@ def run() -> int:
         return 2
     csrc = REPO / "nclt_slam_tpu_torch" / "csrc"
     if not all((csrc / f).is_file() for f in
-               ("wavefront.cu", "hamming.cu", "ba.cu", "pgo.cu",
-                "gauss_jordan.cuh")):
+               ("wavefront.cu", "hamming.cu", "ba.cu", "pgo.cu")):
         print(f"chip_smoke: no nclt_slam_tpu_torch checkout beside {__file__}",
               file=sys.stderr)
         return 2
@@ -2209,6 +2307,14 @@ def run() -> int:
             "bench_plain_ms": k3["bench"]["plain_ms"],
             "bench_bound_ms": k3["bench"]["bound_ms"],
             "bench_solves_per_s": k3["bench"]["solves_per_s"],
+            "plan": k3["rollout"]["plan"],
+            "launch_floor_ms": k3["rollout"]["launch_floor_ms"],
+            "eager_ms": k3["rollout"]["eager_ms"],
+            "host_us_per_call": k3["rollout"]["host_us_per_call"],
+            "library_cholesky_solve_ms": k3["rollout"]["library_cholesky_ms"],
+            "bench_plan": k3["bench"]["plan"],
+            "bench_launch_floor_ms": k3["bench"]["launch_floor_ms"],
+            "bench_eager_ms": k3["bench"]["eager_ms"],
             "sweep": k3["sweep"],
         },
         {

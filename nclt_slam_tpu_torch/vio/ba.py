@@ -20,9 +20,10 @@ residuals, to rounding.
 
 ``solve_ba`` sends CUDA tensors to the hand-written kernel
 (``ops/ba.py``, ``csrc/ba.cu``) and CPU tensors to ``solve_ba_plain``, the
-same function in batched PyTorch.  The two differ in the reduced solve
-(Gauss-Jordan against Cholesky) and in summation order, so they agree by
-tolerance on consistent windows, not bit for bit.
+same function in batched PyTorch.  Both solve the reduced system by an
+unpivoted Cholesky factorisation; they differ in summation order only (the
+kernel sums each cluster rank's landmark slice, then the ranks), so they
+agree by tolerance on consistent windows, not bit for bit.
 """
 
 from __future__ import annotations
@@ -72,7 +73,10 @@ class BAResult(NamedTuple):
 
 def broadcast_w_rel(w_rel, B: int, Km1: int, device,
                     dtype=torch.float32) -> torch.Tensor:
-    """``w_rel`` as a (B, K-1) tensor."""
+    """``w_rel`` as a (B, K-1) tensor.  A Python number is filled on the
+    device (no copy from the host, so a CUDA graph can hold the call)."""
+    if not torch.is_tensor(w_rel):
+        return torch.full((B, Km1), float(w_rel), dtype=dtype, device=device)
     w = torch.as_tensor(w_rel, dtype=dtype, device=device)
     if w.dim() == 1:
         w = w[:, None]

@@ -170,10 +170,10 @@ def test_hamming_kernel_rejects_unsupported(cuda):
 
 
 # K3 against its plain version on consistent windows (B, K, P, iters, point
-# prior, w_rel).  The two differ in the reduced solve (Gauss-Jordan against
-# Cholesky) and in summation order, so they agree by the tolerances of the
-# JAX package's tests/test_ba_pallas.py: poses 2e-4 m, quaternions 2e-5,
-# points 1e-3 m, cost 1e-3 relative.
+# prior, w_rel).  Both solve the reduced system by an unpivoted Cholesky;
+# they differ in summation order only, so they agree by the tolerances of
+# the JAX package's tests/test_ba_pallas.py: poses 2e-4 m, quaternions
+# 2e-5, points 1e-3 m, cost 1e-3 relative.
 BA_SHAPES = [(3, 6, 64, 10, None, 100.0), (1, 6, 40, 6, 50.0, 100.0),
              (2, 10, 48, 6, None, 100.0), (15, 16, 192, 3, 50.0, 10.0)]
 
@@ -223,6 +223,96 @@ def test_ba_kernel_rejects_unsupported(cuda):
     with pytest.raises(ValueError):
         ba.solve_ba(prob._replace(obs_w=prob.obs_w[:, :, :-1]), cfg.camera,
                     cfg.vio)
+
+
+def _ba_within(got, ref):
+    for f, tol in (("kf_pos", 2e-4), ("kf_quat", 2e-5), ("points", 1e-3)):
+        assert (getattr(got, f) - getattr(ref, f)).abs().max().item() <= tol, f
+    torch.testing.assert_close(got.final_cost, ref.final_cost, rtol=1e-3,
+                               atol=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_ba_kernel_every_cluster_size(cuda, cluster):
+    """The rollout's call under every cluster size: within tolerance of the
+    plain version, two launches bit-equal, and the plan's shared memory
+    the kernel's own count."""
+    from nclt_slam_tpu_torch import config
+    from nclt_slam_tpu_torch.ops import ba as ops_ba
+    from nclt_slam_tpu_torch.vio import ba
+    from chip_smoke import consistent_windows
+
+    B, K, P, iters, prior, w_rel = BA_SHAPES[-1]
+    cfg = config.DEFAULT
+    prob, _ = consistent_windows(range(B), cuda, K=K, P=P, w_rel=w_rel,
+                                 prior=prior)
+    plan = ops_ba.plan(B, K, P, cluster=cluster)
+    assert plan.cluster == cluster
+    assert ops_ba.kernel_smem_bytes(plan, K) == plan.smem_bytes
+    assert ops_ba.max_active_clusters(plan) >= 1
+    got = ops_ba.launch(prob, cfg.camera, cfg.vio, iters, plan)
+    again = ops_ba.launch(prob, cfg.camera, cfg.vio, iters, plan)
+    torch.cuda.synchronize()
+    _ba_within(got, ba.solve_ba_plain(prob, cfg.camera, cfg.vio, iters=iters))
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_ba_kernel_largest_window_against_float64(cuda):
+    """The sweep's widest window (24 keyframes, 512 landmarks: each rank's
+    slice in four chunks, formed again for the back-substitution, rows of
+    the exchange in two halves) on consistent windows, within the
+    tolerances of a float64 solve.  Printed beside it: the plain version
+    in float32, which sums all 512 landmarks of a block at once."""
+    from nclt_slam_tpu_torch import config
+    from nclt_slam_tpu_torch.ops import ba as ops_ba
+    from nclt_slam_tpu_torch.vio import ba
+    from chip_smoke import consistent_windows
+
+    cfg = config.DEFAULT
+    prob, _ = consistent_windows(range(2), cuda, K=24, P=512)
+    plan = ops_ba.plan(2, 24, 512)
+    assert plan.kept < plan.landmarks_per_rank
+    got = ba.solve_ba(prob, cfg.camera, cfg.vio, iters=8, site="test")
+    p64 = ba.BAProblem(*(t.double() if torch.is_tensor(t) else t
+                         for t in prob))
+    ref = ba.solve_ba_plain(p64, cfg.camera, cfg.vio, iters=8)
+    plain = ba.solve_ba_plain(prob, cfg.camera, cfg.vio, iters=8)
+    torch.cuda.synchronize()
+    for name, out in (("kernel", got), ("plain float32", plain)):
+        err = {f: (getattr(out, f).double() - getattr(ref, f)).abs().max()
+               .item() for f in ("kf_pos", "kf_quat", "points")}
+        print(f"{name} against float64: {err}")
+    for f, tol in (("kf_pos", 2e-4), ("kf_quat", 2e-5), ("points", 1e-3)):
+        assert (getattr(got, f).double() - getattr(ref, f)).abs().max() \
+            .item() <= tol, f
+
+
+@pytest.mark.cuda
+def test_ba_kernel_nan_window_stays_alone(cuda):
+    """A window of NaN observations beside finite ones: the finite windows
+    equal their solves alone, bit for bit (the plan is the same: one
+    cluster a window), and the NaN window keeps its poses."""
+    from nclt_slam_tpu_torch import config
+    from nclt_slam_tpu_torch.vio import ba
+    from chip_smoke import consistent_windows
+
+    cfg = config.DEFAULT
+    prob, _ = consistent_windows(range(3), cuda, K=6, P=64)
+    bad = prob._replace(obs_uv=prob.obs_uv.clone())
+    bad.obs_uv[1] = float("nan")
+    got = ba.solve_ba(bad, cfg.camera, cfg.vio, iters=3, site="test")
+    for i in (0, 2):
+        one = ba.BAProblem(*(t[i:i + 1] if torch.is_tensor(t) else t
+                             for t in prob))
+        alone = ba.solve_ba(one, cfg.camera, cfg.vio, iters=3, site="test")
+        for a, b in zip(got, alone):
+            assert torch.equal(a[i:i + 1], b)
+    torch.cuda.synchronize()
+    assert torch.equal(got.kf_pos[1], prob.kf_pos[1])
+    assert not torch.isfinite(got.final_cost[1])
 
 
 # K4 against its plain version on chip_smoke.py's four check graphs (the

@@ -22,8 +22,11 @@ iteration's cycles go, and its time beside other builds of it.
 2. Times ``csrc/pgo.cu`` and each ``--against`` source (a ``pgo.cu`` with the
    same C entry point that needs no more scratch than the wrapper
    allocates, e.g. an earlier commit's, ``git show
-   REV:nclt_slam_tpu_torch/csrc/pgo.cu``, built beside this tree's
-   ``gauss_jordan.cuh``) at the tool's shape with CUDA events, in the order
+   REV:nclt_slam_tpu_torch/csrc/pgo.cu``; the one-block Gauss-Jordan
+   version of 0e74993 includes ``gauss_jordan.cuh``, which is then taken
+   from beside it, ``git show
+   0e74993:nclt_slam_tpu_torch/csrc/gauss_jordan.cuh``) at the tool's shape
+   with CUDA events, in the order
    A B ... B A, each with its largest difference from the plain version.
 3. With ``--dense-determinism N`` (and nothing else): the dense
    ``optimize_pose_graph`` (the path ``run_slam`` takes below 400 poses)
@@ -198,7 +201,9 @@ def compare(graphs, against) -> list:
         dst = PROBE_DIR / f"against_{i}" / "pgo.cu"
         dst.parent.mkdir(parents=True, exist_ok=True)
         shutil.copy(path, dst)
-        shutil.copy(CSRC / "gauss_jordan.cuh", dst.parent)
+        header = Path(path).parent / "gauss_jordan.cuh"   # 0e74993's
+        if header.is_file():
+            shutil.copy(header, dst.parent)
         sources.append((str(path), dst))
     graph, w = graphs["tool_shape"]
     ref = lc.optimize_pgo_plain(graph, w, iters=ITERS)
