@@ -18,9 +18,10 @@ Phases, each of which must pass (any failure exits non-zero):
 4. hold the Hamming cross-check kernel (K1) against its plain version, bit
    for bit on all three outputs of each of 10 launches, at the main path's
    shapes — 15 problems of 256 live features x 384 VIO map points, 75
-   problems of 256 x 256, and the matcher's grouped form (75
+   problems of 256 x 256, the matcher's grouped form (75
    stored-feature sets, five per route, against their route's 15 live
-   frames) — with ~20 % invalid rows, shared rows (ties) and one
+   frames), and the RGB-D SLAM baseline's 139 odometry frame pairs and
+   16 loop candidates of 256 x 256 — with ~20 % invalid rows, shared rows (ties) and one
    all-invalid problem; print its plan (a cluster of blocks a problem:
    band rows, owned columns, threads, shared memory, the clusters the card
    holds at once) and time it, its plain version and an empty kernel of
@@ -62,6 +63,18 @@ Phases, each of which must pass (any failure exits non-zero):
    included; every window that the rollout gives K3 is also held against a
    float64 solve, and the replay's end against a replay with the plain
    version in the kernel's place;
+8a. replay the JAX reference stock and encoder repeats
+   (``tests/data/torch_{stock,encoder}_campaign_fixture.npz``: 150 ticks
+   off the same teach) and compare with the ours replay's tolerances and
+   rules: the stock repeat's projected waypoints, poses, VIO track, every
+   discrete sequence (goal-blocked flags, plan failures, RPP recovery
+   phases) and the follower's final state; the encoder repeat's dynamics
+   and relay; then force the stock stack's stall branches, which the stock
+   campaigns do not reach: the same two routes' stock repeat with the
+   wheels pinned and route 1's spawn lethal in its teach map, 350 ticks;
+   RPP's progress checker must enter recovery on route 0 (its entries in
+   the trace equal to the controller's count) and the dispatcher must
+   block route 1's goal;
 8b. replay the JAX reference SLAM session
    (``tests/data/torch_slam_fixture.npz``: the SLAM tool's winter season cut
    to 401 scans x 128 points) through ``run_slam`` and compare: loop pairs
@@ -73,6 +86,15 @@ Phases, each of which must pass (any failure exits non-zero):
    candidates; where each such candidate leaves the port's CPU run is
    printed); hold K4 and the fused PGO on the fixture's own pose graph
    against JAX's;
+8c. run the RGB-D SLAM baseline (``datasets/slam/rgbd_slam.py``) on the
+   loop session of the JAX package's ``tests/test_rgbd_slam.py`` (72
+   pillars, 140 frames, built on the card by the port's ``observe``) twice:
+   the two runs bit-equal, each launching K1 twice (site ``rgbd_slam``);
+   match counts and loop set against ``tests/data/
+   torch_rgbd_slam_fixture.npz`` (where they differ, the frames whose
+   observed rows differ from the fixture's and the pairs whose Kabsch
+   starts tie below float32 resolution are printed; every count must be a
+   tied start's, ``kabsch_ties``); ATE open and optimized;
 9. drive the GT-localized main path through the campaign API: 15 routes at
    full width, a GT teach, teach waypoints, a GT repeat with
    ``stop_when_done=False``; check that K2 was launched on it;
@@ -96,7 +118,19 @@ Phases, each of which must pass (any failure exits non-zero):
     passed its gate and moved a keyframe or a map point, every trace is
     finite, every relay committed and the robots moved; then a shorter
     ``rgbd_no_imu()`` repeat (no BA) for the same mode without it;
-11b. drive the LiDAR SLAM main path: the SLAM tool's winter session at full
+11a. drive the stock Nav2 baseline and the encoder-only ablation off the
+    same teach, waypoints and stores: 15-route repeats at full width
+    through the calibration front end ``tools/torch_calibrate.run``; check
+    that K2 was launched in both and K1 (site ``vio``) in stock only, every
+    trace is finite, the robots moved, every stock relay committed and the
+    RPP recovery entries in the trace match the controller's count; print
+    ms a tick, env steps/s, launches per site, the campaign aggregate, the
+    recovery entries and goal-blocked ticks;
+11b. render the depth image at full width with ``CameraConfig.
+    ray_terrain_tex`` off and on: terrain hits within the texture's height
+    bound plus the march's quantization, hit or miss agreeing on all but a
+    hundredth of the rays; both times;
+11c. drive the LiDAR SLAM main path: the SLAM tool's winter session at full
     width (2000 scans x 1024 points) through ``run_slam``; check that K4 was
     launched exactly once, from the fused PGO, every pose is finite, a loop
     was accepted and the optimized ATE is no worse than the open one; print
@@ -145,7 +179,8 @@ KERNEL_ITERS = 384
 K2_CHECK_LAUNCHES = 10
 DETERMINISM_TICKS = 100
 # K1 problems: (a-sets, A rows, b-sets, B rows), 8 words (256 bits) a row
-HAMMING_SHAPES = ((15, 256, 15, 384), (75, 256, 75, 256), (75, 256, 15, 256))
+HAMMING_SHAPES = ((15, 256, 15, 384), (75, 256, 75, 256), (75, 256, 15, 256),
+                  (139, 256, 139, 256), (16, 256, 16, 256))
 DESC_WORDS = 8
 K1_CHECK_LAUNCHES = 10
 K1_TIMED_LAUNCHES = 200
@@ -265,6 +300,47 @@ OPS_PGO_POSE = 9
 FIX_SLAM_ATOL = 1e-3
 FIX_SLAM_MAX_FLIP_SHARE = 0.1
 FIX_SLAM_MIN_FLIP = 20
+
+
+# The RGB-D SLAM baseline (datasets/slam/rgbd_slam.py) on the loop session
+# of the JAX package's tests/test_rgbd_slam.py: 72 pillars on a ring of
+# radius 14 m, a closed loop of 140 frames plus a revisit, the test's run
+# arguments.  Held against tests/data/torch_rgbd_slam_fixture.npz (JAX on the
+# CPU): the per-frame match counts and the loop set equal wherever the
+# frames' observed rows (feature ids) are the fixture's, the poses within
+# RGBD_SLAM_ATOL_M.
+# The frame-to-frame Kabsch keeps the best of four 24-step power iterations
+# on Horn's matrix.  Where another start's Rayleigh quotient lies within
+# KABSCH_TIE_GAP (relative, in float64) of the best, float32 cannot tell
+# them apart: the float32 Horn matrix sums up to 256 products, so its
+# entries, and the quotients, carry ~sqrt(256) * 2**-24 ~ 2**-20 of
+# rounding.  The start kept there follows the rounding of the sums (the JAX
+# package's eager and jitted runs differ on such pairs too).  A pair's count
+# may differ from the reference only where both counts are among its tied
+# starts' (kabsch_ties), by one inlier, on at most RGBD_SLAM_MAX_FLIP_SHARE
+# of the pairs (tests/test_torch_rgbd_slam.py).
+RGBD_SLAM_FIXTURE = REPO / "tests" / "data" / "torch_rgbd_slam_fixture.npz"
+RGBD_SLAM_FRAMES = 140
+RGBD_SLAM_KW = dict(loop_min_gap=60, sig_thresh=0.08)
+RGBD_SLAM_ATOL_M = 0.05
+RGBD_SLAM_MAX_FLIP_SHARE = 0.1
+KABSCH_TIE_GAP = 2.0 ** -20
+# a float32 frame_rel_pose lies within this of the float64 pose of the tied
+# start it kept (2.6e-6 at most over the session's 139 pairs, JAX's and the
+# port's, on the CPU)
+KABSCH_TIE_POSE_ATOL = 1e-5
+# the stock and encoder campaigns off the ours teach, their fixture replays
+BASELINE_REPEAT_TICKS = 300
+STOCK_FIXTURE = REPO / "tests" / "data" / "torch_stock_campaign_fixture.npz"
+ENCODER_FIXTURE = REPO / "tests" / "data" / \
+    "torch_encoder_campaign_fixture.npz"
+STOCK_DISCRETE = ("goal_blocked", "plan_fails", "recovery_phase")
+# the forced stall: RPP's progress checker allows 30 s (300 ticks)
+STALL_TICKS = 350
+# CameraConfig.ray_terrain_tex: the baked texture is within this of the
+# analytic field (tests/test_scene.py::test_terrain_tex_matches_analytic)
+TEX_HEIGHT_BOUND_M = 0.02
+TEX_HIT_AGREE_FRAC = 0.99
 
 
 class SmokeError(RuntimeError):
@@ -1090,6 +1166,100 @@ def keep_results(module, names):
             setattr(module, n, inner[n])
 
 
+def rgbd_loop_session(dev, T: int = RGBD_SLAM_FRAMES, R: float = 14.0):
+    """The loop session of the JAX package's tests/test_rgbd_slam.py,
+    observed by the port's ``observe`` from the same threefry keys, all T
+    frames in one batched call: (Observation with fields (T, K, ...), GT xy
+    (T, 2) numpy)."""
+    import numpy as np
+    import torch
+    from nclt_slam_tpu_torch import interop
+    from nclt_slam_tpu_torch.config import DEFAULT
+    from nclt_slam_tpu_torch.core import prng
+    from nclt_slam_tpu_torch.sensors.features import (
+        build_scene_features,
+        observe,
+    )
+
+    rng = np.random.RandomState(6)
+    N = 72
+    ang = rng.uniform(0, 2 * np.pi, N)
+    rad = R + rng.uniform(-6.0, 6.0, N)
+    oxy = np.stack([rad * np.cos(ang), rad * np.sin(ang)], -1).astype(
+        np.float32)
+    ovalid = np.ones(N, bool)
+    feats = build_scene_features(oxy, np.full(N, 0.4, np.float32),
+                                 np.zeros(N, np.float32),
+                                 np.full(N, 6.0, np.float32), ovalid,
+                                 DEFAULT.landmarks)
+    feats = type(feats)(*(x[None].expand((T,) + x.shape) for x in
+                          interop.from_numpy_tree(feats, dev)))
+    th = np.linspace(0, 2 * np.pi * (1 + 45 / T), T)   # loop + revisit
+    gt = np.stack([R * np.cos(th), R * np.sin(th)], -1)
+    yaw = th + np.pi / 2
+    key = prng.PRNGKey(3, dev)
+    keys = []
+    for _ in range(T):
+        key, ko = prng.split(key).unbind(0)
+        keys.append(ko)
+    pos3 = torch.tensor(np.concatenate([gt, np.full((T, 1), 0.31)], 1),
+                        dtype=torch.float32, device=dev)
+    obs = observe(pos3, torch.tensor(yaw, dtype=torch.float32, device=dev),
+                  feats, torch.ones(T, N, dtype=torch.bool, device=dev),
+                  torch.stack(keys), DEFAULT.camera, DEFAULT.landmarks)
+    return obs, gt
+
+
+def kabsch_ties(obs, cam):
+    """Per odometry pair of a stacked session (pair k at k - 1), what
+    ``frame_rel_pose`` gives when each of its two Kabsch solves keeps any
+    power-iteration start whose Rayleigh quotient is, in float64, within
+    KABSCH_TIE_GAP of the best: the outcomes between which float32 rounding
+    may choose, a list of (n_inliers, dx, dy, dyaw) a pair."""
+    import torch
+    from nclt_slam_tpu_torch.datasets.slam import rgbd_slam as rs
+    from nclt_slam_tpu_torch.landmarks.matcher import (
+        _horn_starts,
+        _start_pose,
+    )
+    from nclt_slam_tpu_torch.sensors.features import _take, cross_check_match
+
+    T = obs.desc.shape[0]
+    a = rs._frames(obs, range(T - 1))
+    b = rs._frames(obs, range(1, T))
+    m, matched, _ = cross_check_match(b.desc, b.valid, a.desc, a.valid,
+                                      return_dist=True, site="check")
+    pa = _take(rs._body_points(a, cam), m).double()
+    pb = rs._body_points(b, cam).double()
+    w0 = matched.double()
+
+    def tied_starts(w):
+        V, q, mp, mq = _horn_starts(pb, pa, w)
+        best = q.max(-1, keepdim=True).values
+        tied = (best - q) <= KABSCH_TIE_GAP * best.abs()
+        return [(tied[:, k], *_start_pose(V, torch.full(
+            (T - 1,), k, device=pb.device), mp, mq)) for k in range(4)]
+
+    outcomes = [[] for _ in range(T - 1)]
+    for tie1, R1, t1 in tied_starts(w0):
+        w1 = w0 * (rs._residual(pb, pa, R1, t1) < 0.5)
+        for tie2, R2, t2 in tied_starts(w1):
+            n = ((w0 > 0) & (rs._residual(pb, pa, R2, t2) < 0.3)).sum(-1)
+            pose = torch.stack([t2[:, 0], t2[:, 1],
+                                torch.atan2(R2[:, 1, 0], R2[:, 0, 0])], -1)
+            for p in torch.nonzero(tie1 & tie2)[:, 0].tolist():
+                outcomes[p].append((int(n[p]), *pose[p].tolist()))
+    return outcomes
+
+
+def tie_witnessed(outcomes, n, pose):
+    """Whether one of a pair's ``kabsch_ties`` outcomes has the inlier count
+    ``n`` and lies within KABSCH_TIE_POSE_ATOL of ``pose`` (dx, dy, dyaw)."""
+    return any(o[0] == int(n) and max(abs(x - float(y)) for x, y in
+                                      zip(o[1:], pose)) <= KABSCH_TIE_POSE_ATOL
+               for o in outcomes)
+
+
 def slam_tool():
     sys.path.insert(0, str(REPO / "tools"))
     import torch_slam_scale_test
@@ -1790,6 +1960,388 @@ def rgbd_ba_fixture_phase(shared, dev, solvers=("plain",)):
     return report
 
 
+def baseline_fixture_phase(shared, dev):
+    """Replay the JAX reference stock and encoder repeats (2 routes, 150
+    ticks) off the ours fixture's teach and compare, with the ours replay's
+    tolerances and divergence rules: the stock repeat's projected
+    waypoints, GT and nav poses, VIO track, every discrete sequence (the
+    dispatcher's goal-blocked flag and plan failures and the RPP recovery
+    phase among them) and the follower's final state; the encoder repeat's
+    dynamics and relay (no VIO: the nav pose is encoder + compass)."""
+    import numpy as np
+    from nclt_slam_tpu_torch import config
+    from nclt_slam_tpu_torch.baselines import configs as baselines
+    from nclt_slam_tpu_torch.fusion.relay import REGIME_ENCODER
+    from nclt_slam_tpu_torch.rollout import campaign
+
+    data, teach, wps, n_wps = shared
+    reports = {}
+    for mode, path, cfg in (("stock", STOCK_FIXTURE, baselines.stock_nav2()),
+                            ("encoder", ENCODER_FIXTURE,
+                             config.encoder_only())):
+        fx = np.load(path)
+        check([str(n) for n in fx["routes"]] == list(data.names),
+              f"the {mode} fixture's routes are not the ours fixture's")
+        n_rep = fx["repeat_gt_xy"].shape[1]
+        run_wps, run_n = campaign.apply_stock_projection(
+            teach.teach_grid, wps, n_wps, cfg)
+        rep = campaign.run_campaign_repeat(data, teach.teach_grid, wps,
+                                           n_wps, cfg, n_rep,
+                                           stores=teach.store,
+                                           stop_when_done=False)
+        r = rep.trace
+        n_ref = int(fx["run_n_wps"].max())
+        r_err, r_start = divergence(r.gt_xy, fx["repeat_gt_xy"])
+        n_err, n_start = divergence(r.nav_xy, fx["repeat_nav_xy"])
+        v_err, v_start = divergence(r.vio_xy, fx["repeat_vio_xy"])
+        ctrl = {f: getattr(rep.final.ctrl, f).cpu().numpy()
+                for f in rep.final.ctrl._fields}
+        ctrl_equal = {f: bool(np.array_equal(v, fx[f"final_ctrl_{f}"]))
+                      for f, v in ctrl.items() if v.dtype.kind != "f"}
+        report = dict(
+            routes=list(data.names), repeat_ticks=n_rep,
+            run_n_wps=run_n.cpu().tolist(),
+            run_n_wps_ref=fx["run_n_wps"].tolist(),
+            run_wps_max_err_m=float(np.abs(
+                run_wps.cpu().numpy()[:, :n_ref]
+                - fx["run_wps"][:, :n_ref]).max()),
+            repeat_gt_xy_max_err_m=r_err, repeat_divergence_from_tick=r_start,
+            repeat_nav_xy_max_err_m=n_err,
+            repeat_nav_divergence_from_tick=n_start,
+            repeat_vio_xy_max_err_m=v_err,
+            repeat_vio_divergence_from_tick=v_start,
+            committed=rep.final.fusion.committed.cpu().tolist(),
+            committed_ref=fx["repeat_committed"].tolist(),
+            final_ctrl_equal=ctrl_equal,
+            recovery_entries=int(ctrl.get("recovery_count",
+                                          np.zeros(1)).sum()),
+            goal_blocked_ticks=int(r.goal_blocked.sum()))
+        for f in OURS_DISCRETE + STOCK_DISCRETE:
+            report[f"{f}_first_diff"] = first_diff(getattr(r, f),
+                                                   fx[f"repeat_{f}"])
+        print(f"{mode}_fixture " + json.dumps(report), flush=True)
+        check(report["run_n_wps"] == report["run_n_wps_ref"]
+              and report["run_wps_max_err_m"] <= FIX_VIO_ATOL_M,
+              f"{mode}: the projected waypoints differ from the fixture")
+        check(r_err <= FIX_REPEAT_ATOL_M, f"{mode} repeat diverged from the "
+              f"JAX fixture ({r_err} m)")
+        check(n_err <= FIX_NAV_ATOL_M, f"{mode} nav pose diverged from the "
+              f"JAX fixture ({n_err} m > {FIX_NAV_ATOL_M} m)")
+        check(v_err <= FIX_NAV_ATOL_M, f"{mode} VIO track diverged from the "
+              f"JAX fixture ({v_err} m > {FIX_NAV_ATOL_M} m)")
+        check(report["committed"] == report["committed_ref"],
+              f"{mode} relay commit differs from the fixture")
+        check(all(ctrl_equal.values()), f"{mode}: the follower's final "
+              f"state differs from the fixture: {ctrl_equal}")
+        for f in OURS_DISCRETE + STOCK_DISCRETE:
+            check(report[f"{f}_first_diff"] is None,
+                  f"{mode} repeat {f} sequence differs from the fixture "
+                  f"from tick {report[f'{f}_first_diff']}")
+        if mode == "encoder":
+            check(bool((r.regime == REGIME_ENCODER).all())
+                  and not r.vio_xy.any(), "the encoder replay is not pure "
+                  "dead reckoning")
+        reports[mode] = report
+    return reports
+
+
+def rgbd_slam_phase(dev):
+    """The RGB-D SLAM baseline on the loop session of the JAX package's
+    tests/test_rgbd_slam.py, built on the card by the port's ``observe``:
+    two runs bit-equal, each launching K1 twice (the batched odometry pairs
+    and the batched loop candidates, site ``rgbd_slam``); the match counts
+    and the loop set held against the JAX fixture (a difference allowed
+    only on a frame whose observed rows differ from the fixture's, or by
+    one inlier on a pair whose Horn iteration leaves its start choice to
+    rounding); the JAX test's ATE checks."""
+    import numpy as np
+    import torch
+    from nclt_slam_tpu_torch.config import DEFAULT
+    from nclt_slam_tpu_torch.datasets.slam import rgbd_slam
+    from nclt_slam_tpu_torch.eval.metrics import ate_rmse
+
+    fx = np.load(RGBD_SLAM_FIXTURE)
+    cam = DEFAULT.camera
+    t0 = time.perf_counter()
+    obs, gt = rgbd_loop_session(dev)
+    torch.cuda.synchronize()
+    session_s = time.perf_counter() - t0
+    runs = []
+    for _ in range(2):
+        reset_counts()
+        t0 = time.perf_counter()
+        res = rgbd_slam.run_rgbd_slam(obs, cam, **RGBD_SLAM_KW)
+        torch.cuda.synchronize()
+        runs.append((res, time.perf_counter() - t0, read_counts()))
+    (a, _, ca), (b, wall, cb) = runs
+    T = len(a.n_matches)
+    for c in (ca, cb):
+        check(c["k1_sites"].get("rgbd_slam", 0) == 2 and c["k1"] == 2
+              and c["k2"] == c["k3"] == c["k4"] == 0,
+              f"run_rgbd_slam launched {c} (K1 twice at site rgbd_slam "
+              f"expected)")
+    same = all(same_bits(x, y) for x, y in
+               [(a.poses_open, b.poses_open), (a.poses_opt, b.poses_opt),
+                (a.n_matches, b.n_matches)] + list(zip(a.loops, b.loops)))
+    check(same, "two RGB-D SLAM runs on the card differ")
+
+    ids, valid = obs.feat_id.cpu().numpy(), obs.valid.cpu().numpy()
+    rows_differ = np.flatnonzero(((ids != fx["feat_id"])
+                                  | (valid != fx["valid"])).any(1))
+    touched = set(rows_differ.tolist())
+    ties = [{o[0] for o in x} for x in kabsch_ties(obs, cam)]
+    unwitnessed = [k for k in range(1, T)
+                   if int(b.n_matches[k]) not in ties[k - 1]]
+    flips = np.flatnonzero(b.n_matches != fx["n_matches"])
+    tie_flips = [int(k) for k in flips
+                 if k - 1 not in touched and k not in touched]
+    bad = [k for k in tie_flips
+           if abs(int(b.n_matches[k]) - int(fx["n_matches"][k])) > 1
+           or not {int(b.n_matches[k]), int(fx["n_matches"][k])}
+           <= ties[k - 1]]
+    got_loops = set(zip(*(x.tolist() for x in b.loops)))
+    ref_loops = set(zip(fx["loop_i"].tolist(), fx["loop_j"].tolist(),
+                        fx["loop_accepted"].tolist()))
+    loop_diff = got_loops ^ ref_loops
+    loop_bad = [e for e in loop_diff if e[0] not in touched
+                and e[1] not in touched]
+    open_err = float(np.abs(b.poses_open - fx["poses_open"]).max())
+    opt_err = float(np.abs(b.poses_opt - fx["poses_opt"]).max())
+    ate_open = ate_rmse(b.poses_open[:, :2], gt)
+    ate_opt = ate_rmse(b.poses_opt[:, :2], gt)
+    report = dict(
+        frames=T, session_s=session_s, run_ms=wall * 1e3,
+        frames_per_s=T / wall, k1_launches_rgbd_slam=cb["k1_sites"]
+        .get("rgbd_slam", 0), two_runs_bit_equal=same,
+        frames_with_rows_differing=rows_differ.tolist(),
+        n_matches_differ_at=flips.tolist(),
+        kabsch_tie_pairs=tie_flips,
+        pairs_with_tied_counts=sum(len(c) > 1 for c in ties),
+        counts_outside_tied_starts=unwitnessed,
+        loops_accepted=int(b.loops[2].sum()),
+        loops_accepted_ref=int(fx["loop_accepted"].sum()),
+        loops_differing=sorted(loop_diff),
+        poses_open_max_err_m=open_err, poses_opt_max_err_m=opt_err,
+        ate_open_m=ate_open, ate_opt_m=ate_opt)
+    print("rgbd_slam " + json.dumps(report), flush=True)
+    check(not bad, f"RGB-D SLAM match counts differ from the fixture on "
+          f"pairs {bad} (not a row-order difference or a Kabsch tie)")
+    check(not unwitnessed, f"RGB-D SLAM match counts on pairs {unwitnessed} "
+          f"are no tied Kabsch start's")
+    check(len(tie_flips) <= RGBD_SLAM_MAX_FLIP_SHARE * (T - 1),
+          f"RGB-D SLAM match counts differ on {len(tie_flips)} pairs")
+    check(not loop_bad, f"RGB-D SLAM loops differ from the fixture: "
+          f"{sorted(loop_bad)}")
+    if not touched:
+        check(open_err <= RGBD_SLAM_ATOL_M and opt_err <= RGBD_SLAM_ATOL_M,
+              f"RGB-D SLAM poses differ from the fixture by {open_err} / "
+              f"{opt_err} m")
+    check((b.n_matches[1:] >= 8).mean() > 0.9 and b.loops[2].sum() >= 1,
+          "RGB-D SLAM lost track or closed no loop")
+    check(np.isfinite(ate_opt) and ate_opt <= ate_open * 1.05 + 0.02
+          and ate_opt < 5.0, f"RGB-D SLAM ATE {ate_open} -> {ate_opt} m")
+    return report
+
+
+def terrain_tex_phase(shared, carry):
+    """``render_depth`` at full width (the routes' poses at the end of the
+    ours repeat, 80 x 60 rays) with ``CameraConfig.ray_terrain_tex`` off
+    and on.  On the rays that hit the terrain both ways, the hit points'
+    vertical gap stays within the texture's height bound plus the march's
+    quantization (half a coarse and half a fine step of the altitude band);
+    hit or miss and the depth image's valid mask agree on all but a
+    hundredth of the rays."""
+    import dataclasses as dc
+    import torch
+    from nclt_slam_tpu_torch.config import DEFAULT
+    from nclt_slam_tpu_torch.dynamics.diffdrive import robot_pose3d
+    from nclt_slam_tpu_torch.sensors import depth
+
+    sc = shared[0].scenes_repeat
+    pos3, _ = robot_pose3d(carry.robot)
+    yaw = carry.robot.yaw
+    cams = {flag: dc.replace(DEFAULT.camera, ray_terrain_tex=flag)
+            for flag in (False, True)}
+    out, ms = {}, {}
+    for flag, cam in cams.items():
+        out[flag] = depth.render_depth(pos3, yaw, sc.xy, sc.radius,
+                                       sc.base_z, sc.height, sc.valid, cam)
+        ms[flag] = time_cuda(lambda cam=cam: depth.render_depth(
+            pos3, yaw, sc.xy, sc.radius, sc.base_z, sc.height, sc.valid,
+            cam), 20)
+    cam = cams[False]
+    origin, R = depth.camera_pose(pos3, yaw, cam)
+    dirs = depth._rotate(R, depth.ray_grid(cam, pos3.device)[None])
+    t_off = depth._terrain_hit(origin, dirs, cams[False])
+    t_on = depth._terrain_hit(origin, dirs, cams[True])
+    both = torch.isfinite(t_off) & torch.isfinite(t_on)
+    hit_agree = (torch.isfinite(t_off) == torch.isfinite(t_on)).float() \
+        .mean().item()
+    gap = ((t_on - t_off).abs() * dirs[..., 2].abs())[both]
+    step_c = (depth._TERR_Z_MAX - depth._TERR_Z_MIN) / \
+        max(8, cam.ray_steps // 4)
+    bound = TEX_HEIGHT_BOUND_M + 0.5 * (step_c + step_c / 8)
+    (d0, _, v0), (d1, _, v1) = out[False], out[True]
+    valid_agree = (v0 == v1).float().mean().item()
+    dd = (d1 - d0).abs()[v0 & v1]
+    report = dict(
+        rays=int(t_off.numel()), terrain_hits=int(both.sum()),
+        hit_agree_frac=hit_agree,
+        vertical_gap_max_m=gap.max().item(),
+        vertical_gap_p99_m=gap.quantile(0.99).item(), bound_m=bound,
+        valid_agree_frac=valid_agree, depth_diff_max_m=dd.max().item(),
+        depth_diff_median_m=dd.median().item(),
+        render_ms_analytic=ms[False], render_ms_tex=ms[True])
+    print("terrain_tex " + json.dumps(report), flush=True)
+    check(int(both.sum()) > 0, "no ray hit the terrain")
+    check(hit_agree >= TEX_HIT_AGREE_FRAC
+          and valid_agree >= TEX_HIT_AGREE_FRAC,
+          f"ray_terrain_tex changes hit or miss on {1 - hit_agree} of the "
+          f"rays ({1 - valid_agree} of the depth image)")
+    check(gap.max().item() <= bound, f"ray_terrain_tex moves a terrain hit "
+          f"{gap.max().item()} m vertically (bound {bound} m)")
+    return report
+
+
+def stock_stall_phase(shared, dev):
+    """The stock stack's stall branches, which the stock campaigns (whose
+    robots keep moving) do not reach, on the card: the stock repeat of the
+    fixture's two routes for STALL_TICKS ticks with the wheels pinned
+    (``SimConfig.max_wheel_speed`` 0) and route 1's spawn made lethal in its
+    teach map.  Route 0 keeps its path and stalls, so RPP's progress checker
+    (0.3 m in 30 s) must enter its recovery cycle, the trace's recovery
+    phases agreeing with the controller's count; route 1's start is lethal,
+    so the stock dispatcher must block its goal and clear its path."""
+    import dataclasses as dc
+    import numpy as np
+    import torch
+    from nclt_slam_tpu_torch.baselines import configs as baselines
+    from nclt_slam_tpu_torch.control.rpp import PHASE_SPIN
+    from nclt_slam_tpu_torch.mapping.occupancy import world_to_cell
+    from nclt_slam_tpu_torch.rollout import campaign
+
+    data, teach, wps, n_wps = shared
+    base = baselines.stock_nav2()
+    cfg = base.replace(sim=dc.replace(base.sim, max_wheel_speed=0.0))
+    grid = teach.teach_grid.clone()
+    r, c = (int(i) for i in world_to_cell(data.routes.spawn[1, 0],
+                                          data.routes.spawn[1, 1], cfg.map))
+    grid[1, r - 1:r + 2, c - 1:c + 2] = 2               # occupied
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rep = campaign.run_campaign_repeat(data, grid, wps, n_wps, cfg,
+                                       STALL_TICKS, stores=teach.store,
+                                       stop_when_done=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tr = rep.trace
+    rp = np.asarray(tr.recovery_phase)
+    entries = ((rp[:, 1:] > 0) & (rp[:, :-1] == 0)).sum(1) + (rp[:, 0] > 0)
+    count = rep.final.ctrl.recovery_count.cpu().numpy()
+    blocked = np.asarray(tr.goal_blocked).sum(1)
+    moved = np.hypot(*(tr.gt_xy[:, -1] - tr.gt_xy[:, 0]).T)
+    has_path = rep.final.dispatch.has_path.cpu().tolist()
+    report = dict(
+        routes=list(data.names), ticks=int(rp.shape[1]), wall_s=wall,
+        recovery_entries=entries.tolist(), recovery_count=count.tolist(),
+        first_recovery_tick=[int(np.argmax(x > 0)) if x.any() else None
+                             for x in rp],
+        recovery_phases_seen=sorted(set(rp[0].tolist())),
+        goal_blocked_ticks=blocked.tolist(), final_has_path=has_path,
+        moved_m=moved.tolist())
+    print("stock_stall " + json.dumps(report), flush=True)
+    traces_finite((("stall gt_xy", tr.gt_xy), ("stall nav_xy", tr.nav_xy),
+                   ("stall cmd_v", tr.cmd_v)))
+    check((moved < 0.05).all(), f"pinned robots moved {moved.tolist()} m")
+    check(np.array_equal(entries, count), f"RPP recovery entries in the "
+          f"trace {entries.tolist()} disagree with the controller's count "
+          f"{count.tolist()}")
+    check(count[0] >= 1 and PHASE_SPIN in report["recovery_phases_seen"],
+          "the stalled route never entered RPP recovery")
+    check(blocked[1] > 0 and not has_path[1], "the stock dispatcher did not "
+          "block the goal of the route whose start is lethal")
+    return report
+
+
+def baseline_main_path_phase(shared, dev):
+    """The 15-route stock and encoder repeats at full width off the ours
+    path's teach, waypoints and landmark stores, through the calibration
+    front end (``tools/torch_calibrate.run``): K2 launched in both, K1
+    (site ``vio``) in stock only; traces finite and robots moving; every
+    stock relay committed; the encoder's nav pose pure dead reckoning."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, str(REPO / "tools"))
+    import torch_calibrate
+    from nclt_slam_tpu_torch.fusion.relay import REGIME_ENCODER
+
+    n_routes = len(shared[0].names)
+    stats = {}
+    for mode in ("stock", "encoder"):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        (_, _, agg, _, anchor), _, rep = torch_calibrate.run(
+            None, mode, 0, BASELINE_REPEAT_TICKS, dev, shared=shared)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        sites = counts["k1_sites"]
+        check(counts["k2"] > 0, f"the {mode} path launched K2 no time")
+        check(counts["k3"] == counts["k4"] == 0
+              and sites.get("matcher", 0) == 0,
+              f"the {mode} path launched {counts}")
+        if mode == "stock":
+            check(sites.get("vio", 0) > 0 and counts["k1"] == sites["vio"],
+                  f"the stock path did not launch K1 in vio_frame only: "
+                  f"{sites}")
+        else:
+            check(counts["k1"] == 0, f"the encoder path launched K1: {sites}")
+        r = rep.trace
+        traces_finite(((f"{mode} gt_xy", r.gt_xy),
+                       (f"{mode} nav_xy", r.nav_xy),
+                       (f"{mode} vio_xy", r.vio_xy),
+                       (f"{mode} cmd_v", r.cmd_v)))
+        rep_path = np.hypot(*np.diff(r.gt_xy, axis=1).T).sum(0)
+        check((rep_path > 2.0).sum() >= n_routes - 2,
+              f"{mode} robots did not move: {rep_path.round(2).tolist()}")
+        ex = executed(BASELINE_REPEAT_TICKS)
+        substeps = torch_calibrate.mode_config(mode).sim.nav_decimation
+        row = dict(
+            routes=n_routes, repeat_ticks=ex, wall_s=wall,
+            ms_per_tick=wall / ex * 1e3,
+            env_steps_per_s=ex * substeps * n_routes / wall,
+            launches=counts, repeat_path_m_mean=float(rep_path.mean()),
+            wp_idx=rep.final.dispatch.idx.cpu().tolist(),
+            stalled_routes=int(r.done[:, -1].sum()),
+            anchor_attempts=sum(a["attempts"] for a in anchor.values()))
+        if mode == "stock":
+            committed = rep.final.fusion.committed.cpu().numpy()
+            check(committed.all(), f"stock relays not committed: "
+                  f"{committed.tolist()}")
+            rp = r.recovery_phase
+            entries = int(((rp[:, 1:] > 0) & (rp[:, :-1] == 0)).sum()
+                          + (rp[:, 0] > 0).sum())
+            check(entries == int(rep.final.ctrl.recovery_count.sum()),
+                  "RPP recovery entries in the trace disagree with the "
+                  "controller's count")
+            row.update(rpp_recovery_entries=entries,
+                       goal_blocked_ticks=int(r.goal_blocked.sum()),
+                       goal_blocked_routes=int(r.goal_blocked.any(1).sum()),
+                       k1_launches_per_tick=sites.get("vio", 0) / ex)
+        else:
+            check(bool((r.regime == REGIME_ENCODER).all())
+                  and not r.vio_xy.any(),
+                  "the encoder repeat is not pure dead reckoning")
+        drift = np.hypot(*(r.nav_xy - r.gt_xy).transpose(2, 0, 1))
+        row.update(nav_err_m_mean=float(drift.mean()),
+                   nav_err_m_max=float(drift.max()))
+        print(f"{mode}_campaign_metrics " + json.dumps(agg), flush=True)
+        print(f"{mode}_main_path " + json.dumps(row), flush=True)
+        stats[mode] = row
+    return stats
+
+
 def traces_finite(named):
     import numpy as np
     for name, arr in named:
@@ -2217,22 +2769,32 @@ def run() -> int:
     k4 = pgo_phase(dev)
     pgo_determinism = pgo_determinism_phase(dev)
     fixture_phase(dev)
-    rgbd_ba_fixture_phase(ours_fixture_phase(dev), dev)
+    ours_fx = ours_fixture_phase(dev)
+    rgbd_ba_fixture_phase(ours_fx, dev)
+    baseline_fixture_phase(ours_fx, dev)
+    stock_stall_phase(ours_fx, dev)
+    del ours_fx
     slam_fixture_phase(dev)
+    rgbd_slam = rgbd_slam_phase(dev)
     gt, gt_ctx = main_path_phase(dev)
     determinism = determinism_phase(*gt_ctx)
     del gt_ctx
     ours, shared, ours_carry = ours_main_path_phase(dev)
     rgbd_ba = rgbd_ba_main_path_phase(shared, dev)
+    base = baseline_main_path_phase(shared, dev)
+    terrain_tex_phase(shared, ours_carry)
     slam = slam_main_path_phase(dev, card)
     ours_profile = ours_profile_phase(shared, ours_carry)
     slam_profile_phase(dev)
 
     window, coarse = k2_rows
-    vio_row, _, matcher_row = k1_rows
-    k1_launches = ours["launches"]["k1"] + rgbd_ba["launches"]["k1"]
+    vio_row, _, matcher_row, odo_row, loop_row = k1_rows
+    k1_launches = ours["launches"]["k1"] + rgbd_ba["launches"]["k1"] + \
+        base["stock"]["launches"]["k1"] + base["encoder"]["launches"]["k1"] \
+        + rgbd_slam["k1_launches_rgbd_slam"]
     k2_launches = gt["launches"]["k2"] + ours["launches"]["k2"] + \
-        rgbd_ba["launches"]["k2"]
+        rgbd_ba["launches"]["k2"] + base["stock"]["launches"]["k2"] + \
+        base["encoder"]["launches"]["k2"]
     kernels = {"kernels": [
         {
             "name": "hamming_cross_check",
@@ -2247,8 +2809,13 @@ def run() -> int:
             "bound_by": vio_row["bound_by"],
             "library_ms": None,
             "shape": vio_row["shape"],
-            "launches_by_path": {"ours": ours["launches"]["k1_sites"],
-                                 "rgbd_ba": rgbd_ba["launches"]["k1_sites"]},
+            "launches_by_path": {
+                "ours": ours["launches"]["k1_sites"],
+                "rgbd_ba": rgbd_ba["launches"]["k1_sites"],
+                "stock": base["stock"]["launches"]["k1_sites"],
+                "encoder": base["encoder"]["launches"]["k1_sites"],
+                "rgbd_slam": {"rgbd_slam":
+                              rgbd_slam["k1_launches_rgbd_slam"]}},
             "plan": vio_row["plan"],
             "launch_floor_ms": vio_row["launch_floor_ms"],
             "eager_ms": vio_row["eager_ms"],
@@ -2259,6 +2826,11 @@ def run() -> int:
             "matcher_plan": matcher_row["plan"],
             "matcher_launch_floor_ms": matcher_row["launch_floor_ms"],
             "matcher_eager_ms": matcher_row["eager_ms"],
+            "rgbd_slam_rows": [
+                {k: row[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                     "bound_by", "eager_ms",
+                                     "launch_floor_ms", "plan")}
+                for row in (odo_row, loop_row)],
             "ours_profile_window": {
                 "ticks": PROFILE_TICKS,
                 "launches": ours_profile["k1_launches"],
@@ -2279,7 +2851,10 @@ def run() -> int:
             "shape": window["shape"],
             "launches_by_path": {"gt": gt["launches"]["k2"],
                                  "ours": ours["launches"]["k2"],
-                                 "rgbd_ba": rgbd_ba["launches"]["k2"]},
+                                 "rgbd_ba": rgbd_ba["launches"]["k2"],
+                                 "stock": base["stock"]["launches"]["k2"],
+                                 "encoder":
+                                     base["encoder"]["launches"]["k2"]},
             "coarse_shape": coarse["shape"],
             "coarse_ms": coarse["ms"],
             "coarse_plain_ms": coarse["plain_ms"],

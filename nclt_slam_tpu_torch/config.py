@@ -441,7 +441,9 @@ class PlannerConfig:
 
     window: int = 192                  # local planning crop (cells, 19.2 m)
     sweeps: int = 2                    # Jacobi rounds (x window iterations)
-    use_pallas: bool = True            # VMEM-resident relaxation kernel
+    # the JAX package's backend switch (its Pallas kernel or the XLA loop,
+    # bit-equal); the port runs K2 on a card and its plain twin on the CPU
+    use_pallas: bool = True
     # two-level planning: a full-map cost-to-goal potential on a coarse
     # static grid seeds the fine window's BORDER, so the window can route
     # toward bypasses longer than itself — the reference's NavFn plans on

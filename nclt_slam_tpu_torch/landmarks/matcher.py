@@ -52,14 +52,11 @@ R_CONSISTENCY_FAIL = 4
 _POWER_ITERS = 24
 
 
-def _kabsch(P, Q, w):
-    """Weighted rigid alignment R, t with R @ P + t ~= Q.
-    P, Q (..., N, 3), w (..., N).
-
-    Horn's quaternion method: the dominant eigenvector of the 4x4 N matrix
-    by a fixed 24-step power iteration from all four basis starts, the one
-    with the largest Rayleigh quotient kept — the JAX package's algorithm,
-    with the 4x4 algebra as batched (..., 4, 4) products."""
+def _horn_starts(P, Q, w):
+    """Horn's quaternion method short of its choice of start: the weighted
+    centroids mp, mq (..., 1, 3), the four starts after the power iteration
+    V (..., 4, 4) (one a column, rows w x y z) and their Rayleigh quotients
+    (..., 4).  In the dtype of P."""
     w = w[..., None]
     wsum = w.sum(-2, keepdim=True).clamp_min(1e-6)
     mp = (P * w).sum(-2, keepdim=True) / wsum              # (..., 1, 3)
@@ -75,20 +72,36 @@ def _kabsch(P, Q, w):
         szx - sxz, sxy + syx, -sxx + syy - szz + shift, syz + szy,
         sxy - syx, szx + sxz, syz + szy, -sxx - syy + szz + shift,
     ], -1).reshape(H.shape[:-2] + (4, 4))
-    V = torch.full((4, 4), 0.05, device=H.device) + \
-        1.0 * torch.eye(4, device=H.device)
+    V = torch.full((4, 4), 0.05, dtype=H.dtype, device=H.device) + \
+        1.0 * torch.eye(4, dtype=H.dtype, device=H.device)
     V = V.expand(Nm.shape)
     for _ in range(_POWER_ITERS):
         V2 = torch.matmul(Nm, V)
         V = V2 / (torch.sqrt((V2 * V2).sum(-2, keepdim=True)) + 1e-12)
     rayleigh = (V * torch.matmul(Nm, V)).sum(-2)           # (..., 4)
-    best = rayleigh.argmax(-1)
-    v = torch.gather(V, -1, best[..., None, None].expand(
-        best.shape + (4, 1)))[..., 0]                      # (..., 4) wxyz
+    return V, rayleigh, mp, mq
+
+
+def _start_pose(V, k, mp, mq):
+    """R, t of start ``k`` (...,) of ``_horn_starts``."""
+    v = torch.gather(V, -1, k[..., None, None].expand(
+        k.shape + (4, 1)))[..., 0]                         # (..., 4) wxyz
     R = quat_to_mat(torch.stack([v[..., 1], v[..., 2], v[..., 3],
                                  v[..., 0]], -1))
     t = mq[..., 0, :] - torch.matmul(R, mp[..., 0, :, None])[..., 0]
     return R, t
+
+
+def _kabsch(P, Q, w):
+    """Weighted rigid alignment R, t with R @ P + t ~= Q.
+    P, Q (..., N, 3), w (..., N).
+
+    Horn's quaternion method: the dominant eigenvector of the 4x4 N matrix
+    by a fixed 24-step power iteration from all four basis starts, the one
+    with the largest Rayleigh quotient kept — the JAX package's algorithm,
+    with the 4x4 algebra as batched (..., 4, 4) products."""
+    V, rayleigh, mp, mq = _horn_starts(P, Q, w)
+    return _start_pose(V, rayleigh.argmax(-1), mp, mq)
 
 
 def _project(p_cam, cam: CameraConfig):

@@ -8,6 +8,13 @@ planner; REACH at 3 m; per-WP timeout; plan-fail SKIP; the final-5-WP
 policy.  ``dispatch_move`` is the cheap every-tick phase; ``dispatch_plan``
 the heavy phase the rollout calls at the costmap cadence.  State carries a
 leading route dimension; per-route decisions are ``torch.where`` masks.
+
+``PlannerConfig.stock_follow`` selects the stock Nav2 FollowWaypoints
+semantics (a host-side ``if``, like the cadence gates): the WPs are
+projected once before the run (``stock_project_waypoints``, on the host),
+a lethal believed start or an all-lethal goal-tolerance disc fails the
+plan and leaves the follower path-less, and a WP is given up only by the
+goal-blocked abort or the plan-fail budget — there is no per-WP timeout.
 """
 
 from __future__ import annotations
@@ -58,6 +65,68 @@ def subsample_waypoints(dense_xy: np.ndarray, n_dense: int,
     out = np.zeros((cfg.max_waypoints, 2), np.float32)
     out[:n] = keep[:n]
     out[n:] = keep[n - 1]
+    return out, n
+
+
+def stock_project_waypoints(teach_grid: np.ndarray, wps: np.ndarray,
+                            n_wps: int, map_cfg,
+                            proj_radius_m: float = 2.0,
+                            lethal: float = 70.0,
+                            free: float = 50.0):
+    """One-time client-side WP projection, the stock baseline's only costmap
+    awareness (waypoint_follower_client.py:66-163): peek the static teach-map
+    costmap at every WP; cost >= LETHAL_INFLATED (70) -> move to the nearest
+    cell < 50 within 2 m, or DROP the WP if none exists.  Runs on the host
+    (numpy) before the rollout, like the reference client before sending
+    the action.
+
+    teach_grid: (R, C) trinary int8.  Returns (wps', n') with dropped WPs
+    compacted out and tail-padded like subsample_waypoints.
+    """
+    from scipy import ndimage
+
+    occ = np.asarray(teach_grid) == 2
+    dist = ndimage.distance_transform_edt(~occ) * map_cfg.resolution
+    cost = 98.0 * np.exp(-map_cfg.cost_scaling
+                         * np.maximum(dist - map_cfg.inscribed_radius, 0.0))
+    cost = np.where(dist <= map_cfg.inscribed_radius, 99.0, cost)
+    cost = np.where(dist <= map_cfg.inflation_radius + map_cfg.inscribed_radius,
+                    cost, 0.0)
+
+    res = map_cfg.resolution
+    rad_cells = int(proj_radius_m / res) + 1
+
+    def cost_at(x, y):
+        c = int((x - map_cfg.origin_x) / res)
+        r = int((y - map_cfg.origin_y) / res)
+        if not (0 <= r < cost.shape[0] and 0 <= c < cost.shape[1]):
+            return 100.0
+        return float(cost[r, c])
+
+    kept = []
+    for x, y in np.asarray(wps)[: int(n_wps)]:
+        if cost_at(x, y) < lethal:
+            kept.append((x, y))
+            continue
+        best, best_d = None, None
+        for dr in range(-rad_cells, rad_cells + 1):
+            for dc in range(-rad_cells, rad_cells + 1):
+                if dr * dr + dc * dc > rad_cells * rad_cells:
+                    continue
+                nx, ny = x + dc * res, y + dr * res
+                if cost_at(nx, ny) < free:
+                    d = np.hypot(nx - x, ny - y)
+                    if best_d is None or d < best_d:
+                        best, best_d = (nx, ny), d
+        if best is not None:
+            kept.append(best)
+        # else: dropped altogether (client "skipped_n")
+
+    kept = np.asarray(kept if kept else [np.asarray(wps)[0]], np.float32)
+    n = min(len(kept), int(wps.shape[0]))
+    out = np.zeros_like(np.asarray(wps, np.float32))
+    out[:n] = kept[:n]
+    out[n:] = kept[n - 1]
     return out, n
 
 
@@ -202,11 +271,9 @@ def dispatch_plan(state: DispatchState, robot_xy, cost_win, win_r0, win_c0,
     """Heavy phase (costmap cadence): reproject WPs, pick the target (WP or
     detour), run the wavefront planner.  A good new plan replaces the
     committed path only when the target changed, the committed path is
-    older than ``replan_period``, or there is no path yet."""
-    if cfg.stock_follow:
-        raise NotImplementedError(
-            "PlannerConfig.stock_follow (stock-Nav2 baseline) comes with "
-            "the stock slice of the port")
+    older than ``replan_period``, or there is no path yet.  Under
+    ``stock_follow`` a lethal believed start or an all-lethal goal disc
+    fails the plan (``goal_blocked``) and clears ``has_path``."""
     if cfg.enable_projection:
         state = project_waypoints(state, cost_win, win_r0, win_c0, map_cfg,
                                   cfg)
@@ -246,14 +313,41 @@ def dispatch_plan(state: DispatchState, robot_xy, cost_win, win_r0, win_c0,
                       cfg, coarse_phi=coarse_phi, coarse_goal=coarse_goal)
     plan_good = plan.ok & (plan.n_path > 1)
 
-    goal_cost = _cost_peak_3x3(cost_win, win_r0, win_c0, target, map_cfg,
-                               cfg.window)
-    goal_blocked = goal_cost >= 99.0
+    if cfg.stock_follow:
+        # NavFn clears the start cell, but for the stock baseline a believed
+        # pose inside mapped inflation stands in for the reference's
+        # physical wedge-stall: the BT loops recoveries in place; and NavFn
+        # fails when every cell within the goal tolerance (8 directions x
+        # 3 radii) is lethal
+        start_lethal = _cost_at(cost_win, win_r0, win_c0, robot_xy, map_cfg,
+                                cfg.window) >= 99.0
+        plan_good = plan_good & ~start_lethal
+        tol = cfg.stock_goal_tolerance_m
+        ang = 2.0 * math.pi * torch.arange(8, dtype=torch.float32,
+                                           device=target.device) / 8
+        rads = torch.tensor([0.0, 0.5 * tol, tol], dtype=torch.float32,
+                            device=target.device)
+        ring = torch.stack([torch.cos(ang), torch.sin(ang)], -1)
+        disc = target[:, None, None, :] + \
+            rads[None, :, None, None] * ring[None, None]       # (B, 3, 8, 2)
+        disc_cost = _cost_at(cost_win, win_r0, win_c0, disc, map_cfg,
+                             cfg.window)
+        goal_blocked = (disc_cost.flatten(1).amin(1) >= 99.0) | start_lethal
+    else:
+        goal_cost = _cost_peak_3x3(cost_win, win_r0, win_c0, target, map_cfg,
+                                   cfg.window)
+        goal_blocked = goal_cost >= 99.0
 
     dt = target - state.planned_target
     target_changed = torch.sqrt((dt * dt).sum(-1)) > 0.5
     stale = (tick - state.plan_tick) >= cfg.replan_period
     accept = plan_good & (target_changed | stale | (~state.has_path))
+    has_path = accept | state.has_path
+    if cfg.stock_follow:
+        # a planner-failed goal leaves the BT with no path: the controller
+        # publishes zero and the progress checker cycles the recoveries
+        accept = accept & ~goal_blocked
+        has_path = has_path & ~goal_blocked
 
     one = torch.ones_like(state.plan_version)
     zero = torch.zeros_like(state.plan_version)
@@ -263,7 +357,7 @@ def dispatch_plan(state: DispatchState, robot_xy, cost_win, win_r0, win_c0,
         path_xy=torch.where(accept[:, None, None], plan.path_xy,
                             state.path_xy),
         n_path=torch.where(accept, plan.n_path, state.n_path),
-        has_path=accept | state.has_path,
+        has_path=has_path,
         plan_version=state.plan_version + torch.where(accept, one, zero),
         plan_tick=torch.where(accept, zero + tick, state.plan_tick),
         planned_target=torch.where(accept[:, None], target,
@@ -276,10 +370,6 @@ def dispatch_plan(state: DispatchState, robot_xy, cost_win, win_r0, win_c0,
 def dispatch_move(state: DispatchState, robot_xy, known_xy, known_r,
                   known_active, cfg: PlannerConfig) -> DispatchState:
     """Cheap phase — every tick: reach / skip / timeout / advance."""
-    if cfg.stock_follow:
-        raise NotImplementedError(
-            "PlannerConfig.stock_follow (stock-Nav2 baseline) comes with "
-            "the stock slice of the port")
     rows = _rows(robot_xy)
     idx = torch.minimum(state.idx, state.n_wps - 1).long()
     is_final = idx >= state.n_wps - cfg.final_wp_count
@@ -294,17 +384,28 @@ def dispatch_move(state: DispatchState, robot_xy, known_xy, known_r,
     else:
         late_detect = torch.zeros_like(is_final)
 
-    skip_now = (state.skip[rows, idx] | late_detect) & ~is_final
-    max_fails = torch.where(is_final, torch.full_like(state.plan_fails, 10 ** 6),
-                            torch.full_like(state.plan_fails,
-                                            cfg.max_plan_fails))
-    timeout = torch.where(is_final,
-                          torch.full_like(state.plan_fails,
-                                          2 * cfg.goal_timeout_ticks),
-                          torch.full_like(state.plan_fails,
-                                          cfg.goal_timeout_ticks))
-    fail_skip = (state.plan_fails >= max_fails) | \
-        (state.ticks_on_wp >= timeout)
+    if cfg.stock_follow:
+        # stock WaypointFollower: no per-WP timeout.  A planner-failed goal
+        # leaves the BT path-less until NavigateToPose aborts after
+        # stock_abort_ticks; stop_on_failure=false then moves on
+        skip_now = state.skip[rows, idx]
+        aborted = state.goal_blocked & \
+            (state.blocked_ticks >= cfg.stock_abort_ticks)
+        fail_skip = aborted | (~state.goal_blocked &
+                               (state.plan_fails >= cfg.max_plan_fails))
+    else:
+        skip_now = (state.skip[rows, idx] | late_detect) & ~is_final
+        max_fails = torch.where(is_final,
+                                torch.full_like(state.plan_fails, 10 ** 6),
+                                torch.full_like(state.plan_fails,
+                                                cfg.max_plan_fails))
+        timeout = torch.where(is_final,
+                              torch.full_like(state.plan_fails,
+                                              2 * cfg.goal_timeout_ticks),
+                              torch.full_like(state.plan_fails,
+                                              cfg.goal_timeout_ticks))
+        fail_skip = (state.plan_fails >= max_fails) | \
+            (state.ticks_on_wp >= timeout)
 
     advance = (reached | skip_now | fail_skip) & ~state.done
     one = torch.ones_like(state.idx)

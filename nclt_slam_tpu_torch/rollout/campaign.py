@@ -5,6 +5,8 @@
 route dimension on one device; the teach and repeat runners step the whole
 batch tick by tick, in equal chunks whose boundaries are the only places
 the host waits on the device (the all-routes-done early stop).
+``expand_for_ablations`` adds the obstacle-ablation axis (drops / clean)
+as more batch.
 """
 
 from __future__ import annotations
@@ -21,7 +23,10 @@ from nclt_slam_tpu_torch.eval.metrics import (
     procrustes_align_2d,
     route_metrics,
 )
-from nclt_slam_tpu_torch.planning.dispatcher import subsample_waypoints
+from nclt_slam_tpu_torch.planning.dispatcher import (
+    stock_project_waypoints,
+    subsample_waypoints,
+)
 from nclt_slam_tpu_torch.rollout.repeat import (
     RepeatResult,
     RepeatTrace,
@@ -156,6 +161,25 @@ def teach_waypoints(data: CampaignData, teach: TeachResult, cfg: Config,
             torch.tensor(n_list, dtype=torch.int32, device=dev))
 
 
+def apply_stock_projection(teach_grids, wps, n_wps, cfg: Config):
+    """Stock-baseline client-side WP preparation: when
+    ``cfg.planner.stock_follow`` is set, run the one-time teach-map
+    projection/drop pass per route on the host
+    (waypoint_follower_client._prepare_poses).  No-op for other stacks."""
+    if not cfg.planner.stock_follow:
+        return wps, n_wps
+    tg = teach_grids.cpu().numpy()
+    w = wps.cpu().numpy()
+    n = n_wps.cpu().numpy()
+    out_w, out_n = [], []
+    for i in range(w.shape[0]):
+        wi, ni = stock_project_waypoints(tg[i], w[i], int(n[i]), cfg.map)
+        out_w.append(wi)
+        out_n.append(ni)
+    return (torch.from_numpy(np.stack(out_w)).to(wps.device),
+            torch.tensor(out_n, dtype=torch.int32, device=n_wps.device))
+
+
 def run_campaign_repeat(data: CampaignData, teach_grids, wps, n_wps,
                         cfg: Config, n_ticks: int, stores=None,
                         chunk: int = 250, progress=None, carry=None,
@@ -163,8 +187,12 @@ def run_campaign_repeat(data: CampaignData, teach_grids, wps, n_wps,
                         stop_when_done: bool = True) -> RepeatResult:
     """Batched repeat, chunked like run_campaign_teach.  ``carry``/``tick0``
     continue a previous run's final state; ``stop_when_done=False`` runs
-    exactly ``planned_chunks`` worth of ticks (benchmarking)."""
+    exactly ``planned_chunks`` worth of ticks (benchmarking).  The stock
+    baseline's one-time WP projection runs here, so that every entry point
+    projects (stock mode has no per-WP timeout: a lethal WP would block a
+    route for good); it is idempotent."""
     n_chunks, chunk = planned_chunks(n_ticks, chunk)
+    wps, n_wps = apply_stock_projection(teach_grids, wps, n_wps, cfg)
     if carry is None:
         carry = init_repeat_carry(data.routes, wps, n_wps, cfg)
     traces = []
@@ -200,3 +228,36 @@ def campaign_metrics(data: CampaignData, repeat: RepeatResult, wps, n_wps,
             wp_tol=cfg.eval.wp_tol_m, endpoint_tol=cfg.eval.endpoint_tol_m,
             drift_period=cfg.eval.drift_log_period)
     return per_route, aggregate_metrics(per_route)
+
+
+def expand_for_ablations(data: CampaignData, teach_grids, wps, n_wps,
+                         stores=None, ablations=("drops", "clean")):
+    """Expand the route batch with an obstacle-ablation axis: each route
+    appears once per ablation, with the drop colliders masked out for
+    "clean".  Returns (expanded CampaignData, teach_grids, wps, n_wps,
+    stores, labels)."""
+    reps = len(ablations)
+
+    def tile(tree):
+        if isinstance(tree, torch.Tensor):
+            return torch.cat([tree] * reps, 0)
+        return type(tree)(*(tile(x) for x in tree))
+
+    scenes = []
+    for ab in ablations:
+        if ab == "drops":
+            scenes.append(data.scenes_repeat)
+        elif ab == "clean":
+            rep = data.scenes_repeat
+            scenes.append(rep._replace(valid=rep.valid & ~rep.drop_mask))
+        else:
+            raise ValueError(f"unknown ablation {ab!r}")
+    scenes_rep = type(scenes[0])(*(torch.cat(xs, 0) for xs in zip(*scenes)))
+
+    labels = tuple(f"{n}@{ab}" for ab in ablations for n in data.names)
+    expanded = CampaignData(
+        scenes_teach=tile(data.scenes_teach), scenes_repeat=scenes_rep,
+        routes=tile(data.routes), names=labels)
+    out_stores = tile(stores) if stores is not None else None
+    return (expanded, tile(teach_grids), tile(wps), tile(n_wps), out_stores,
+            labels)

@@ -9,17 +9,22 @@ The route batch is the leading dimension; cadence gates are host-side
 ``if``s, per-route predicates ``torch.where`` masks.
 
 The localization source is selected by ``cfg.mode``: ``use_gt`` passes GT
-straight through; the full stack (``config.ours()``: VIO with IMU, visual
-anchors at 2 Hz, the v55 relay) runs the 200 Hz IMU block, the feature
-observation with the dropped obstacles as occluders, ``vio_frame``, the
-anchor matcher and ``fusion_tick``, and holds the robot at spawn until the
-relay has committed its SLAM alignment; the RGB-D-only mode
-(``config.rgbd_no_imu()``) is the same stack with constant-velocity
-prediction in place of the IMU.  ``VioConfig.enable_local_ba`` adds the
-sliding-window BA (kernel K3) every tenth tick, and
-``PlannerConfig.gt_stall_abort`` the baselines' GT-stall watchdog.  The
-encoder-only ablation, the stack without anchors, the stock RPP follower
-and stock waypoint following raise ``NotImplementedError``.
+straight through; otherwise the 200 Hz IMU block runs and the v55 relay
+fuses what the stack gives it.  ``use_slam`` adds the feature observation
+(the dropped obstacles as occluders) and ``vio_frame`` (with IMU, or with
+constant-velocity prediction under ``use_imu=False``), and holds the robot
+at spawn until the relay has committed its SLAM alignment; ``use_anchors``
+adds the anchor matcher at 2 Hz.  Without SLAM (the encoder-only ablation)
+the relay runs on encoder plus compass; with neither SLAM nor anchors the
+feature observation is skipped (its key is split off before the branch,
+so every other draw is the same as when it runs).
+``VioConfig.enable_local_ba`` adds the sliding-window BA (kernel K3) every
+tenth tick, ``PlannerConfig.gt_stall_abort`` the baselines' GT-stall
+watchdog, ``ControlConfig.use_rpp`` the stock RegulatedPurePursuit
+follower with its recovery cycle in place of the thesis follower, and
+``PlannerConfig.stock_follow`` the stock waypoint-following semantics of
+the dispatcher (``config`` presets: ``encoder_only()``,
+``baselines.configs.stock_nav2()``).
 
 Like the JAX package, the IMU block and the relay draw from the same
 ``k_fuse`` key of a tick.
@@ -33,6 +38,7 @@ import torch
 
 from nclt_slam_tpu_torch.config import Config
 from nclt_slam_tpu_torch.control.pure_pursuit import CtrlState, follower_tick, init_ctrl
+from nclt_slam_tpu_torch.control.rpp import RppState, init_rpp, rpp_tick
 from nclt_slam_tpu_torch.control.supervisor import (
     SupervisorState,
     init_supervisor,
@@ -91,7 +97,7 @@ from nclt_slam_tpu_torch.vio.tracker import (
 
 class RepeatCarry(NamedTuple):
     robot: RobotState
-    ctrl: CtrlState
+    ctrl: CtrlState | RppState
     dispatch: DispatchState
     sup: SupervisorState
     imu: ImuState
@@ -136,30 +142,11 @@ class RepeatResult(NamedTuple):
     final: RepeatCarry
 
 
-def _check_ported(cfg: Config):
-    m = cfg.mode
-    if not (m.use_gt or (m.use_slam and m.use_anchors)):
-        raise NotImplementedError(
-            "GT localization, the full stack (config.ours()) and the "
-            "RGB-D-only stack (config.rgbd_no_imu()) are ported; the "
-            "encoder-only ablation and the stack without anchors come with "
-            "the stock slice of the port")
-    if cfg.planner.stock_follow:
-        raise NotImplementedError(
-            "PlannerConfig.stock_follow comes with the stock slice of the "
-            "port")
-    if cfg.control.use_rpp:
-        raise NotImplementedError(
-            "ControlConfig.use_rpp (stock RPP baseline) comes with the stock "
-            "slice of the port")
-
-
 def repeat_step(carry: RepeatCarry, tick: int, scene: PackedScene,
                 route: PackedRoute, teach_grid, store: LandmarkStore | None,
                 cfg: Config):
     """One 10 Hz repeat tick for the whole route batch.  ``store`` (the
     teach landmarks, stacked per route) is read by the anchor matcher."""
-    _check_ported(cfg)
     key, k_dyn, k_obs, k_match, k_fuse, k_vio = \
         prng.split(carry.key, 6).unbind(1)
     t_now = torch.full((), tick, dtype=torch.float32,
@@ -196,30 +183,40 @@ def repeat_step(carry: RepeatCarry, tick: int, scene: PackedScene,
         # 200 Hz synthetic IMU over this tick's substep trajectory
         imu, imu_meas = imu_block(carry.imu, pos_traj, quat_traj,
                                   1.0 / cfg.sim.physics_hz, k_fuse, cfg.imu)
-        # dropped obstacles block the line of sight to teach-time features
-        occluders = (scene.xy, scene.radius, scene.base_z, scene.height,
-                     valid_now & scene.drop_mask,
-                     torch.arange(scene.xy.shape[1], dtype=i32, device=dev))
-        obs = observe(pos3, robot.yaw, _scene_features(scene), valid_now,
-                      k_obs, cfg.camera, cfg.landmarks,
-                      yaw_rate=carry.cmd[:, 1], occluders=occluders,
-                      px_session_amp=cfg.camera.px_bias_session_amp)
-        vio, slam_ok, vio_aux = vio_frame(
-            carry.vio, obs, imu_meas,
-            cfg.sim.nav_decimation / cfg.sim.physics_hz,
-            torch.tensor(GRAVITY, device=dev), cfg.camera, cfg.vio,
-            mode.use_imu, key=k_vio)
-        # local sliding-window BA at 1 Hz
-        if cfg.vio.enable_local_ba and tick % 10 == 3:
-            vio = local_ba(vio, cfg.camera, cfg.vio)
-        slam_t, slam_q = emit_slam_pose(vio, cfg.camera)
-        slam_ok = slam_ok & torch.isfinite(slam_t).all(-1) & \
-            torch.isfinite(slam_q).all(-1)
+        if mode.use_slam or mode.use_anchors:
+            # dropped obstacles block the line of sight to teach features
+            occluders = (scene.xy, scene.radius, scene.base_z, scene.height,
+                         valid_now & scene.drop_mask,
+                         torch.arange(scene.xy.shape[1], dtype=i32,
+                                      device=dev))
+            obs = observe(pos3, robot.yaw, _scene_features(scene), valid_now,
+                          k_obs, cfg.camera, cfg.landmarks,
+                          yaw_rate=carry.cmd[:, 1], occluders=occluders,
+                          px_session_amp=cfg.camera.px_bias_session_amp)
+        if mode.use_slam:
+            vio, slam_ok, vio_aux = vio_frame(
+                carry.vio, obs, imu_meas,
+                cfg.sim.nav_decimation / cfg.sim.physics_hz,
+                torch.tensor(GRAVITY, device=dev), cfg.camera, cfg.vio,
+                mode.use_imu, key=k_vio)
+            # local sliding-window BA at 1 Hz
+            if cfg.vio.enable_local_ba and tick % 10 == 3:
+                vio = local_ba(vio, cfg.camera, cfg.vio)
+            slam_t, slam_q = emit_slam_pose(vio, cfg.camera)
+            slam_ok = slam_ok & torch.isfinite(slam_t).all(-1) & \
+                torch.isfinite(slam_q).all(-1)
+        else:
+            # encoder + compass dead reckoning: the relay sees no SLAM pose
+            vio = carry.vio
+            slam_ok = torch.zeros(B, dtype=torch.bool, device=dev)
+            slam_t = torch.zeros(B, 3, dtype=f32, device=dev)
+            slam_q = torch.tensor([0.0, 0.0, 0.0, 1.0],
+                                  device=dev).expand(B, 4)
 
         # --- visual anchor matcher at 2 Hz, gated on GT like the
         # reference matcher reading the sim's pose file ---
         fusion = carry.fusion
-        if tick % cfg.landmarks.tick_period == 0:
+        if mode.use_anchors and tick % cfg.landmarks.tick_period == 0:
             drought_s = (tick - fusion.anchor_tick).clamp_min(0).to(f32) * 0.1
             extra = torch.clamp_max(
                 cfg.landmarks.consistency_relax_per_s * drought_s,
@@ -308,12 +305,17 @@ def repeat_step(carry: RepeatCarry, tick: int, scene: PackedScene,
             dispatch = dispatch._replace(
                 done=dispatch.done | (span < cfg.planner.gt_stall_min_m))
 
-    # --- follower (thesis pure-pursuit stack) ---
-    ctrl, v, w = follower_tick(
-        carry.ctrl, nav_xy, nav_yaw, dispatch.path_xy, dispatch.n_path,
-        dispatch.has_path & ~dispatch.done, dispatch.plan_version,
-        cost_win, win_r0, win_c0, t_now, cfg.map, cfg.control,
-        cfg.planner.window)
+    # --- follower (thesis pure-pursuit stack or stock RPP baseline) ---
+    path_active = dispatch.has_path & ~dispatch.done
+    if cfg.control.use_rpp:
+        ctrl, v, w = rpp_tick(
+            carry.ctrl, nav_xy, nav_yaw, dispatch.path_xy, dispatch.n_path,
+            path_active, t_now, cfg.rpp)
+    else:
+        ctrl, v, w = follower_tick(
+            carry.ctrl, nav_xy, nav_yaw, dispatch.path_xy, dispatch.n_path,
+            path_active, dispatch.plan_version, cost_win, win_r0, win_c0,
+            t_now, cfg.map, cfg.control, cfg.planner.window)
     v = torch.where(dispatch.done, torch.zeros_like(v), v)
     w = torch.where(dispatch.done, torch.zeros_like(w), w)
 
@@ -338,7 +340,7 @@ def repeat_step(carry: RepeatCarry, tick: int, scene: PackedScene,
         vio_flags=vio_aux.flags if has_aux else zero_i,
         wp_idx=dispatch.idx, cmd_v=v, done=dispatch.done, fired=sup.fired,
         goal_blocked=dispatch.goal_blocked, plan_fails=dispatch.plan_fails,
-        recovery_phase=neg)
+        recovery_phase=ctrl.phase if cfg.control.use_rpp else neg)
     new_carry = RepeatCarry(
         robot=robot, ctrl=ctrl, dispatch=dispatch, sup=sup,
         imu=imu, vio=vio, fusion=fusion,
@@ -354,7 +356,6 @@ def init_repeat_carry(route: PackedRoute, wps, n_wps, cfg: Config,
                       seed: int = 1) -> RepeatCarry:
     """Initial repeat state for a batch of packed routes and their teach
     waypoints (wps (B, max_waypoints, 2), n_wps (B,))."""
-    _check_ported(cfg)
     B = route.spawn.shape[0]
     dev = route.spawn.device
     W = cfg.planner.window
@@ -364,7 +365,7 @@ def init_repeat_carry(route: PackedRoute, wps, n_wps, cfg: Config,
     k_imu, key = prng.split(prng.PRNGKey(seed, dev)).unbind(0)
     return RepeatCarry(
         robot=init_robot(route.spawn, route.spawn_yaw),
-        ctrl=init_ctrl(B, dev),
+        ctrl=init_rpp(B, dev) if cfg.control.use_rpp else init_ctrl(B, dev),
         dispatch=init_dispatch(wps, n_wps, cfg.planner),
         sup=init_supervisor(B, dev),
         imu=init_imu(k_imu.expand(B, 2), cfg.imu),

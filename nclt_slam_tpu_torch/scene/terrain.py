@@ -1,7 +1,9 @@
 """Analytic forest terrain heightfield (``nclt_slam_tpu/scene/terrain.py``).
 
 A closed-form multi-octave sine field with a flattened S-curve road
-corridor, evaluated elementwise on float32 tensors of any shape.
+corridor, evaluated elementwise on float32 tensors of any shape, and its
+baked 0.25 m texture sampled bilinearly (``terrain_height_tex``, the
+raycaster's ``CameraConfig.ray_terrain_tex`` path).
 """
 
 from __future__ import annotations
@@ -100,3 +102,76 @@ def terrain_pitch_roll(x, y, yaw, eps: float = 0.3):
     pitch = torch.atan2(-(h_fwd - h0), eps_t)   # nose-up positive
     roll = torch.atan2(h_lat - h0, eps_t)
     return pitch, roll
+
+
+# ---- baked bilinear terrain texture (the raycaster's CameraConfig.
+# ray_terrain_tex path) ----
+#
+# The terrain is globally static, so the raycaster may sample a baked
+# 0.25 m grid instead of the analytic field; the error stays far below the
+# depth sensor's own noise floor.  Dynamics and the pose math keep the
+# analytic field.
+
+TEX_RES = 0.25
+TEX_X0, TEX_Y0 = -140.0, -100.0
+TEX_NX, TEX_NY = 1121, 801            # covers x in [-140, 140], y in [-100, 100]
+
+_TEX_CACHE = None
+_TEX_DEV: dict = {}
+
+
+def _terrain_height_np(x: np.ndarray, y: np.ndarray) -> np.ndarray:
+    """The terrain formula in numpy, with ``np.interp`` for the road: the
+    JAX package's bake (its ``_terrain_height_impl`` on numpy), operation
+    for operation, so that the baked bits are the same."""
+    h = 0.5 * np.sin(x * 0.018 + 0.5) * np.cos(y * 0.022 + 1.2)
+    h += 0.35 * np.sin(x * 0.035 + 2.1) * np.sin(y * 0.03 + 0.7)
+    h += 0.18 * np.sin(x * 0.07 + 3.3) * np.cos(y * 0.065 + 2.5)
+    h += 0.12 * np.cos(x * 0.11 + 1.0) * np.sin(y * 0.09 + 4.0)
+    h += 0.06 * np.sin(x * 0.5 + 0.7) * np.cos(y * 0.43 + 2.1)
+    h += 0.04 * np.cos(x * 0.7 + 3.5) * np.sin(y * 0.6 + 0.4)
+    h += 0.03 * np.sin(x * 1.0 + 1.2) * np.cos(y * 0.83 + 3.8)
+    road = np.interp(x, ROAD_WPS[:, 0], ROAD_WPS[:, 1])
+    road_dist = np.abs(y - road)
+    flatten = np.where(road_dist < 4.0, (road_dist / 4.0) ** 2, 1.0)
+    h = h * flatten
+    h = h - np.where(road_dist < 2.0, 0.06 * (1.0 - road_dist / 2.0), 0.0)
+    return np.maximum(h, -0.5)
+
+
+def terrain_tex() -> np.ndarray:
+    """Baked (TEX_NY, TEX_NX) float32 height grid (numpy, built once)."""
+    global _TEX_CACHE
+    if _TEX_CACHE is None:
+        xs = TEX_X0 + TEX_RES * np.arange(TEX_NX, dtype=np.float32)
+        ys = TEX_Y0 + TEX_RES * np.arange(TEX_NY, dtype=np.float32)
+        gx, gy = np.meshgrid(xs, ys)
+        _TEX_CACHE = _terrain_height_np(
+            gx.astype(np.float32), gy.astype(np.float32)).astype(np.float32)
+    return _TEX_CACHE
+
+
+def _tex(device) -> torch.Tensor:
+    """The baked grid as a tensor on ``device`` (copied there once)."""
+    if device not in _TEX_DEV:
+        _TEX_DEV[device] = torch.from_numpy(terrain_tex()).to(device)
+    return _TEX_DEV[device]
+
+
+def terrain_height_tex(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample of the baked grid on the tensors' device
+    (coordinates clamped to its bounds); a drop-in for ``terrain_height``
+    inside the raycaster."""
+    tex = _tex(x.device)
+    fx = ((x - TEX_X0) / TEX_RES).clamp(0.0, TEX_NX - 1.001)
+    fy = ((y - TEX_Y0) / TEX_RES).clamp(0.0, TEX_NY - 1.001)
+    ix = fx.to(torch.int64)
+    iy = fy.to(torch.int64)
+    ax = fx - ix
+    ay = fy - iy
+    h00 = tex[iy, ix]
+    h01 = tex[iy, ix + 1]
+    h10 = tex[iy + 1, ix]
+    h11 = tex[iy + 1, ix + 1]
+    return (h00 * (1 - ax) * (1 - ay) + h01 * ax * (1 - ay)
+            + h10 * (1 - ax) * ay + h11 * ax * ay)

@@ -2,7 +2,8 @@
 (``nclt_slam_tpu/sensors/depth.py``).
 
 Rays from a D435i-like pinhole camera are intersected with the closed-form
-terrain (band-restricted coarse/fine march) and with the scene colliders as
+terrain (band-restricted coarse/fine march; with ``CameraConfig.
+ray_terrain_tex`` on its baked bilinear texture) and with the scene colliders as
 vertical cylinders (exact quadratic), all as dense tensor math over the
 decimated ray grid with a leading route dimension.
 
@@ -15,7 +16,7 @@ from __future__ import annotations
 import torch
 
 from nclt_slam_tpu_torch.config import CameraConfig
-from nclt_slam_tpu_torch.scene.terrain import terrain_height
+from nclt_slam_tpu_torch.scene.terrain import terrain_height, terrain_height_tex
 
 # base_link (FLU) -> OpenCV camera axes: p_cam = p_base @ R_BASE_CAM
 R_BASE_CAM = ((0.0, 0.0, 1.0),
@@ -86,10 +87,9 @@ def _terrain_hit(origin, dirs_w, cfg: CameraConfig):
     origin (B, 3); dirs_w (B, R, C, 3).  Returns t (B, R, C), inf = miss."""
     S_COARSE = max(8, cfg.ray_steps // 4)
     S_FINE = 8
-    if cfg.ray_terrain_tex:
-        raise NotImplementedError(
-            "CameraConfig.ray_terrain_tex (baked terrain texture) is not "
-            "ported; the analytic field is the default")
+    # baked-texture path (CameraConfig.ray_terrain_tex): bilinear gathers
+    # replace the analytic transcendentals in the march
+    h_fn = terrain_height_tex if cfg.ray_terrain_tex else terrain_height
     sh = (origin.shape[0],) + (1,) * (dirs_w.dim() - 2)
     ox, oy, oz = (origin[:, i].reshape(sh) for i in range(3))
     dz = dirs_w[..., 2]
@@ -117,7 +117,7 @@ def _terrain_hit(origin, dirs_w, cfg: CameraConfig):
         px = ox[None] + ts * dx[None]
         py = oy[None] + ts * dy[None]
         pz = oz[None] + ts * dzw[None]
-        below = (pz < terrain_height(px, py)) & (step[None] > 0)
+        below = (pz < h_fn(px, py)) & (step[None] > 0)
         return below.any(0), below.to(torch.uint8).argmax(0)
 
     step_c = (t_hi - t_lo) / S_COARSE

@@ -26,6 +26,14 @@ def test_baseline_rgbd_no_imu_matches_jax():
     assert got.mode.use_slam and got.mode.use_anchors
 
 
+def test_baseline_stock_nav2_matches_jax():
+    got, want = tbase.stock_nav2(), jbase.stock_nav2()
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.control.use_rpp and got.planner.stock_follow
+    assert got.mode.use_slam and not got.mode.use_anchors
+    assert got.planner.gt_stall_abort and not got.control.enable_prox
+
+
 def test_baseline_rgbd_ba_matches_the_calibration_mode():
     """``rgbd_ba`` is the config ``tools/calibrate.py`` builds inline: the
     JAX baselines' ``rgbd_no_imu()`` with ``vio.enable_local_ba``."""

@@ -127,6 +127,62 @@ def test_hamming_kernel_equals_plain(cuda, shape):
     assert ref[1].any()
 
 
+# the RGB-D SLAM baseline's two calls on its loop session: 139 odometry
+# frame pairs and 16 loop candidates, 256 live features a frame
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(139, 256, 256, 1), (16, 256, 256, 1)])
+def test_hamming_kernel_at_rgbd_slam_shapes(cuda, shape):
+    from nclt_slam_tpu_torch.ops import hamming as hm
+
+    da, va, db, vb = _hamming_case(shape)
+    ref = hm.cross_check_plain(da, va, db, vb)
+    before = hm.cross_check.site_launches.get("rgbd_slam", 0)
+    got = hm.cross_check(*(t.to(cuda) for t in (da, va, db, vb)),
+                         site="rgbd_slam")
+    torch.cuda.synchronize()
+    assert hm.cross_check.site_launches["rgbd_slam"] == before + 1
+    for g, r in zip(got, ref):
+        assert torch.equal(g.cpu(), r)
+    assert ref[1].any()
+
+
+@pytest.mark.cuda
+def test_rgbd_slam_batched_frame_rel_pose_equals_per_pair(cuda):
+    """``frame_rel_pose`` of 39 odometry pairs of the loop session in one
+    batched call on the card against the same pairs one call each.  cuBLAS
+    picks its batched products by batch size, so the sums round
+    differently, and where two Kabsch starts tie below float32 resolution
+    the start kept follows that rounding.  So each result, batched or not,
+    must be a tied start's (``chip_smoke.kabsch_ties``, float64 on the
+    card): its count, and its pose within ``KABSCH_TIE_POSE_ATOL`` (1e-5)
+    of that start's float64 pose; the two counts differ by one inlier at
+    most, on at most a tenth of the pairs, and the flags agree wherever the
+    counts do."""
+    import chip_smoke
+    from nclt_slam_tpu_torch.config import DEFAULT
+    from nclt_slam_tpu_torch.datasets.slam import rgbd_slam as rs
+
+    obs, _ = chip_smoke.rgbd_loop_session(cuda, T=40)
+    cam = DEFAULT.camera
+    ties = chip_smoke.kabsch_ties(obs, cam)
+    batched = rs.frame_rel_pose(rs._frames(obs, range(39)),
+                                rs._frames(obs, range(1, 40)), cam)
+    flips = 0
+    for p in range(39):
+        one = rs.frame_rel_pose(rs._frames(obs, [p]),
+                                rs._frames(obs, [p + 1]), cam)
+        for r, q in ((batched, p), (one, 0)):
+            pose = [x[q].item() for x in r[:3]]
+            assert chip_smoke.tie_witnessed(ties[p], r[3][q], pose), \
+                (p, int(r[3][q]), pose, ties[p])
+        dn = abs(int(batched[3][p]) - int(one[3][0]))
+        assert dn <= 1, p
+        flips += dn
+        if not dn:
+            assert bool(batched[4][p]) == bool(one[4][0]), p
+    assert flips <= 0.1 * 39
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("cluster", [1, 2, 4, 8])
 @pytest.mark.parametrize("shape", [(15, 256, 384, 1), (75, 256, 256, 5),

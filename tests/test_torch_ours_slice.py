@@ -178,24 +178,69 @@ def test_ours_repeat_exercised_the_stack(runs):
     assert (np.asarray(jr.trace.cmd_v)[:20] == 0).all()   # startup hold
 
 
-def test_unported_modes_raise():
+def preset_configs():
+    """Every preset of the JAX package, and each flag that selects a
+    branch of the repeat tick, on the miniature scene of ``configs()``."""
     from nclt_slam_tpu_torch.baselines import configs as tbase
-    from nclt_slam_tpu_torch.rollout.repeat import _check_ported
 
     _, _, _, tr = configs()
-    stock_mode = dataclasses.replace(tr.mode, use_anchors=False)
-    for cfg in (tcfg_mod.encoder_only(), tr.replace(mode=stock_mode),
-                tr.replace(control=dataclasses.replace(tr.control,
-                                                       use_rpp=True)),
-                tr.replace(planner=dataclasses.replace(tr.planner,
-                                                       stock_follow=True))):
-        with pytest.raises(NotImplementedError):
-            _check_ported(cfg)
-    for cfg in (tr, tcfg_mod.gt_localization(), tcfg_mod.rgbd_no_imu(),
-                tbase.rgbd_no_imu(), tbase.rgbd_ba(),
-                tr.replace(vio=dataclasses.replace(tr.vio,
-                                                   enable_local_ba=True))):
-        _check_ported(cfg)
+    return {
+        "ours": tcfg_mod.ours(),
+        "gt_localization": tcfg_mod.gt_localization(),
+        "encoder_only": tcfg_mod.encoder_only(),
+        "rgbd_no_imu": tcfg_mod.rgbd_no_imu(),
+        "baselines.rgbd_no_imu": tbase.rgbd_no_imu(),
+        "baselines.rgbd_ba": tbase.rgbd_ba(),
+        "baselines.stock_nav2": tbase.stock_nav2(),
+        "ours.no_anchors": tr.replace(mode=dataclasses.replace(
+            tr.mode, use_anchors=False)),
+        "ours.use_rpp": tr.replace(control=dataclasses.replace(
+            tr.control, use_rpp=True)),
+        "ours.stock_follow": tr.replace(planner=dataclasses.replace(
+            tr.planner, stock_follow=True)),
+        "ours.ray_terrain_tex": tr.replace(camera=dataclasses.replace(
+            tr.camera, ray_terrain_tex=True)),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(preset_configs()))
+def test_every_preset_steps_a_repeat_tick(runs, name):
+    """One repeat tick (a matcher, costmap and plan tick) of each preset on
+    the CPU: every localization source, follower and dispatcher branch of
+    the port runs, and each writes the trace fields its mode defines."""
+    from nclt_slam_tpu_torch.rollout.repeat import init_repeat_carry as t_init
+    from nclt_slam_tpu_torch.rollout.repeat import repeat_step
+
+    teach, *_ = runs
+    jt_cfg, _, _, tr = configs()
+    preset = preset_configs()[name]
+    cfg = preset.replace(
+        camera=dataclasses.replace(
+            tr.camera, ray_terrain_tex=preset.camera.ray_terrain_tex),
+        map=tr.map, landmarks=tr.landmarks,
+        planner=dataclasses.replace(preset.planner, **{
+            k: getattr(tr.planner, k) for k in
+            ("window", "path_len", "max_waypoints", "goal_timeout_ticks")}))
+    packed, wps, n_wps = pack_test_route(straight_route(), jt_cfg)
+    route = batch1(packed)
+    carry = t_init(route, torch.from_numpy(np.asarray(wps))[None],
+                   torch.tensor([n_wps], dtype=torch.int32), cfg)
+    carry, trace = repeat_step(carry, 0, batch1(tiny_scene(drop_on_path=True)),
+                               route, teach.teach_grid, teach.store, cfg)
+    assert torch.isfinite(trace.nav_xy).all() and \
+        torch.isfinite(carry.cmd).all()
+    m = cfg.mode
+    assert (int(trace.regime[0]) == -1) == m.use_gt
+    assert (int(trace.anchor_reason[0]) >= 0) == (m.use_anchors
+                                                  and not m.use_gt)
+    assert (int(trace.vio_ndesc[0]) >= 0) == (m.use_slam and not m.use_gt)
+    assert (int(trace.recovery_phase[0]) >= 0) == cfg.control.use_rpp
+    assert type(carry.ctrl).__name__ == \
+        ("RppState" if cfg.control.use_rpp else "CtrlState")
+    if not m.use_slam:
+        assert not trace.vio_xy.any()
+    if m.use_gt:
+        assert torch.equal(trace.nav_xy, trace.gt_xy)
 
 
 def test_jax_ours_carry_round_trips_and_steps(runs):

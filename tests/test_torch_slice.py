@@ -295,9 +295,21 @@ def test_port_runs_without_jax():
         "torch.zeros(1, rb.map.rows, rb.map.cols, dtype=torch.int8), "
         "carry.store, rb)\n"
         "assert solves == [1] and torch.isfinite(rt.nav_xy).all()\n"
+        "for cfg in (baselines.stock_nav2(), config.encoder_only()):\n"
+        "    rc = init_repeat_carry(data.routes, wps, torch.tensor([1], "
+        "dtype=torch.int32), cfg)\n"
+        "    rc, rt = repeat_step(rc, 0, data.scenes_repeat, data.routes, "
+        "torch.zeros(1, cfg.map.rows, cfg.map.cols, dtype=torch.int8), "
+        "carry.store, cfg)\n"
+        "    assert torch.isfinite(rt.nav_xy).all()\n"
+        "    assert int(rt.recovery_phase[0]) == (0 if cfg.control.use_rpp "
+        "else -1)\n"
+        "from nclt_slam_tpu_torch.datasets.slam import rgbd_slam\n"
+        "from nclt_slam_tpu_torch.control import rpp\n"
         "import numpy as np\n"
         "sys.path.insert(0, 'tools')\n"
         "import torch_slam_scale_test as slam_tool\n"
+        "import torch_calibrate\n"
         "from nclt_slam_tpu_torch.datasets.slam import icp, loop_closure, "
         "pipeline, registration\n"
         "from nclt_slam_tpu_torch.ops import pgo\n"

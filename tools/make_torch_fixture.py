@@ -20,6 +20,20 @@ runners' default seeds:
   GT-stall watchdog — plus ``vio.enable_local_ba``: the sliding-window BA
   every tenth tick), with the keyframe ring and the VIO map it refined.
 
+- ``torch_stock_campaign_fixture.npz`` and
+  ``torch_encoder_campaign_fixture.npz``: off the same teach and waypoints,
+  ``BASELINE_REPEAT_TICKS`` repeat ticks of the stock Nav2 baseline
+  (``baselines.configs.stock_nav2()``: RPP, stock waypoint following with
+  its one-time projection, VIO without anchors) and of the encoder-only
+  ablation (``config.encoder_only()``), with the projected waypoints and
+  the follower's final state.
+- ``torch_rgbd_slam_fixture.npz``: the RGB-D SLAM baseline
+  (``datasets/slam/rgbd_slam.py``) on the loop session of
+  ``tests/test_rgbd_slam.py`` (72 pillars, 140 frames) with that test's run
+  arguments: each frame's observed feature ids (the rows the matcher
+  sees), the per-frame inlier counts, the loop candidates and accepted
+  flags, the open and optimized poses.
+
 - ``torch_slam_fixture.npz``: the LiDAR SLAM path, ``run_slam`` on the
   winter season of ``tools/slam_scale_test.py`` cut to ``SLAM_SCANS`` scans
   x ``SLAM_PTS`` points (on the tool's two laps, so that revisits fall on
@@ -31,10 +45,12 @@ runners' default seeds:
   odometry edges), the junctions of its host-reduced graph and JAX's dense
   and interpret-mode K4 solutions of that.
 
-``chip_smoke.py`` replays the same campaigns and session on the card and
-compares.  The tool writes all four files (``--mode slam``: only the last):
+``chip_smoke.py`` replays the same campaigns and sessions on the card and
+compares.  The tool writes every file, or those of the modes named
+(``--mode slam gt ours rgbd_ba stock encoder rgbd_slam``; the last four
+share the ours teach):
 
-    JAX_PLATFORMS=cpu python tools/make_torch_fixture.py
+    JAX_PLATFORMS=cpu python tools/make_torch_fixture.py [--mode stock ...]
 """
 
 from __future__ import annotations
@@ -53,6 +69,9 @@ GT_OUT = DATA / "torch_gt_campaign_fixture.npz"
 OURS_OUT = DATA / "torch_ours_campaign_fixture.npz"
 RGBD_BA_OUT = DATA / "torch_rgbd_ba_campaign_fixture.npz"
 SLAM_OUT = DATA / "torch_slam_fixture.npz"
+STOCK_OUT = DATA / "torch_stock_campaign_fixture.npz"
+ENCODER_OUT = DATA / "torch_encoder_campaign_fixture.npz"
+RGBD_SLAM_OUT = DATA / "torch_rgbd_slam_fixture.npz"
 ROUTES = ("02_north_forest", "13_cross_nws")
 # two routes whose first landmark block survives the repeat session's
 # appearance death (LandmarkConfig.session_dead_frac), so that anchors
@@ -68,6 +87,10 @@ OURS_REPEAT_TICKS = 150
 RGBD_BA_REPEAT_TICKS = 150
 BA_PERIOD = 10
 MIN_BA_SOLVES = 5
+# the baselines' repeats off the ours teach
+BASELINE_REPEAT_TICKS = 150
+# the RGB-D SLAM session's run arguments (tests/test_rgbd_slam.py)
+RGBD_SLAM_KW = dict(loop_min_gap=60, sig_thresh=0.08)
 
 
 # the SLAM session: the scale tool's winter season, cut in scans and points
@@ -278,13 +301,62 @@ def write_rgbd_ba(campaign, shared, repeat_ticks, out: Path):
         **repeat_fields(r, carry))
 
 
+def baseline_fields(r, final, wps, n_wps):
+    """A baseline repeat's traces, the waypoints it ran on (after the stock
+    projection) and its follower's final state."""
+    out = repeat_fields(r, final)
+    out.update(
+        repeat_vio_xy=np.asarray(r.vio_xy), repeat_cmd_v=np.asarray(r.cmd_v),
+        repeat_goal_blocked=np.asarray(r.goal_blocked),
+        repeat_plan_fails=np.asarray(r.plan_fails),
+        repeat_recovery_phase=np.asarray(r.recovery_phase),
+        run_wps=np.asarray(wps), run_n_wps=np.asarray(n_wps))
+    out.update({f"final_ctrl_{f}": np.asarray(v)
+                for f, v in zip(final.ctrl._fields, final.ctrl)})
+    return out
+
+
+def write_baseline(cfg, campaign, shared, repeat_ticks, out: Path):
+    data, teach, wps, n_wps = shared
+    rep = campaign.run_campaign_repeat(data, teach.teach_grid, wps, n_wps,
+                                       cfg, repeat_ticks, stores=teach.store,
+                                       stop_when_done=False)
+    run_wps, run_n = campaign.apply_stock_projection(teach.teach_grid, wps,
+                                                     n_wps, cfg)
+    np.savez_compressed(
+        out, routes=np.asarray(OURS_ROUTES),
+        wps=np.asarray(wps), n_wps=np.asarray(n_wps),
+        **baseline_fields(rep.trace, rep.final, run_wps, run_n))
+
+
+def write_rgbd_slam(out: Path):
+    sys.path.insert(0, str(REPO / "tests"))
+    from test_rgbd_slam import CFG, _loop_session
+    from nclt_slam_tpu.datasets.slam.rgbd_slam import run_rgbd_slam
+
+    obs_seq, gt = _loop_session()
+    res = run_rgbd_slam(obs_seq, CFG.camera, **RGBD_SLAM_KW)
+    li, lj, accepted = res.loops
+    np.savez_compressed(
+        out, run_kw=np.asarray(repr(RGBD_SLAM_KW)), gt_xy=gt,
+        feat_id=np.stack([np.asarray(o.feat_id) for o in obs_seq]),
+        valid=np.stack([np.asarray(o.valid) for o in obs_seq]),
+        n_matches=res.n_matches, poses_open=res.poses_open,
+        poses_opt=res.poses_opt, loop_i=np.asarray(li),
+        loop_j=np.asarray(lj), loop_accepted=np.asarray(accepted))
+
+
+MODES = ("slam", "gt", "ours", "rgbd_ba", "stock", "encoder", "rgbd_slam")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--teach-ticks", type=int, default=100)
     ap.add_argument("--repeat-ticks", type=int, default=100)
-    ap.add_argument("--mode", choices=("all", "slam"), default="all",
-                    help="write all four fixtures, or only the SLAM one")
+    ap.add_argument("--mode", nargs="+", choices=("all",) + MODES,
+                    default=["all"], help="the fixtures to write")
     args = ap.parse_args(argv)
+    modes = set(MODES) if "all" in args.mode else set(args.mode)
 
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     sys.path.insert(0, str(REPO))
@@ -292,20 +364,41 @@ def main(argv=None):
 
     jax.config.update("jax_platforms", "cpu")
     from nclt_slam_tpu import config as cfg_mod
+    from nclt_slam_tpu.baselines import configs as baselines
     from nclt_slam_tpu.rollout import campaign
 
     DATA.mkdir(parents=True, exist_ok=True)
-    write_slam(SLAM_OUT)
-    print(f"wrote {SLAM_OUT} ({SLAM_OUT.stat().st_size} bytes)")
-    if args.mode == "slam":
-        return
-    write_gt(cfg_mod, campaign, args.teach_ticks, args.repeat_ticks, GT_OUT)
-    print(f"wrote {GT_OUT} ({GT_OUT.stat().st_size} bytes)")
-    shared = ours_teach(cfg_mod, campaign, OURS_TEACH_TICKS)
-    write_ours(cfg_mod, campaign, shared, OURS_REPEAT_TICKS, OURS_OUT)
-    print(f"wrote {OURS_OUT} ({OURS_OUT.stat().st_size} bytes)")
-    write_rgbd_ba(campaign, shared, RGBD_BA_REPEAT_TICKS, RGBD_BA_OUT)
-    print(f"wrote {RGBD_BA_OUT} ({RGBD_BA_OUT.stat().st_size} bytes)")
+
+    def wrote(out):
+        print(f"wrote {out} ({out.stat().st_size} bytes)", flush=True)
+
+    if "slam" in modes:
+        write_slam(SLAM_OUT)
+        wrote(SLAM_OUT)
+    if "gt" in modes:
+        write_gt(cfg_mod, campaign, args.teach_ticks, args.repeat_ticks,
+                 GT_OUT)
+        wrote(GT_OUT)
+    if modes & {"ours", "rgbd_ba", "stock", "encoder"}:
+        shared = ours_teach(cfg_mod, campaign, OURS_TEACH_TICKS)
+        if "ours" in modes:
+            write_ours(cfg_mod, campaign, shared, OURS_REPEAT_TICKS,
+                       OURS_OUT)
+            wrote(OURS_OUT)
+        if "rgbd_ba" in modes:
+            write_rgbd_ba(campaign, shared, RGBD_BA_REPEAT_TICKS,
+                          RGBD_BA_OUT)
+            wrote(RGBD_BA_OUT)
+        for mode, cfg, out in (("stock", baselines.stock_nav2(), STOCK_OUT),
+                               ("encoder", cfg_mod.encoder_only(),
+                                ENCODER_OUT)):
+            if mode in modes:
+                write_baseline(cfg, campaign, shared, BASELINE_REPEAT_TICKS,
+                               out)
+                wrote(out)
+    if "rgbd_slam" in modes:
+        write_rgbd_slam(RGBD_SLAM_OUT)
+        wrote(RGBD_SLAM_OUT)
 
 
 if __name__ == "__main__":
