@@ -136,6 +136,18 @@ Phases, each of which must pass (any failure exits non-zero):
     was accepted and the optimized ATE is no worse than the open one; print
     each stage's wall seconds, scans/s and the ladder row, and time the
     ICP's parts;
+11d. drive the command-line front ends in-process (``main(argv)`` of
+    ``nclt_slam_tpu_torch.cli.*``) at full width, each with the launch
+    counts set to 0 just before it: (a) ``cli.campaign --routes all --mode
+    gt`` in one call, then as ``--phase teach`` and ``--phase repeat`` in
+    two calls through the teach checkpoint, the two traces.npz bit-equal
+    and the two metrics.json equal; (b) ``--mode ours --phase repeat`` off
+    the same checkpoint, which must launch K1 at both sites and K2, its
+    traces finite and its tables parsed; (c) ``cli.teach`` then
+    ``cli.repeat --mode ours`` on one route through the artefact files, the
+    landmark store read back from landmarks.pkl bit-equal to the one the
+    teach held; print ms a tick and env steps/s of each, the checkpoint's
+    write and read and the tables' and files' writing apart;
 12. profile a short window of the ours repeat, and one full-width ICP, for
     the launches per tick (per ICP iteration), the device's busy share and
     K2's and K1's device time in the ours window (last, because the
@@ -178,6 +190,12 @@ KERNEL_SHAPES = ((15, 192, 192), (15, 119, 232))
 KERNEL_ITERS = 384
 K2_CHECK_LAUNCHES = 10
 DETERMINISM_TICKS = 100
+# the command-line front ends (phase 11d): teach and repeat ticks of every
+# CLI run (past the ours relay's 49-tick startup hold), the single-route
+# CLIs' route, and where they write (gitignored)
+CLI_TICKS = 60
+CLI_ROUTE = "01_road"
+CLI_DIR = REPO / "build" / "cli_smoke"
 # K1 problems: (a-sets, A rows, b-sets, B rows), 8 words (256 bits) a row
 HAMMING_SHAPES = ((15, 256, 15, 384), (75, 256, 75, 256), (75, 256, 15, 256),
                   (139, 256, 139, 256), (16, 256, 16, 256))
@@ -2735,6 +2753,231 @@ def rgbd_ba_main_path_phase(shared, dev):
     return stats
 
 
+@contextlib.contextmanager
+def timed_calls(module, names):
+    """While the block runs, each call of ``module.<name>`` for ``name`` in
+    ``names`` is timed on the host clock up to a synchronised card; yields
+    {name: [seconds, calls]}.  The third item of a name's list is the
+    last call's result."""
+    import torch
+    seen = {name: [0.0, 0, None] for name in names}
+    inner = {name: getattr(module, name) for name in names}
+
+    def wrap(name):
+        def fn(*a, **kw):
+            t0 = time.perf_counter()
+            out = inner[name](*a, **kw)
+            torch.cuda.synchronize()
+            rec = seen[name]
+            rec[0] += time.perf_counter() - t0
+            rec[1] += 1
+            rec[2] = out
+            return out
+        return fn
+
+    for name in names:
+        setattr(module, name, wrap(name))
+    try:
+        yield seen
+    finally:
+        for name, fn in inner.items():
+            setattr(module, name, fn)
+
+
+def parse_tables(text: str, names) -> dict:
+    """The campaign CLI's two markdown tables -> {route: cells} and the
+    aggregate row's cells; fails unless every route has its row."""
+    rows = [line for line in text.splitlines() if line.startswith("| ")]
+    cells = [[c.strip() for c in line.strip("|").split("|")] for line in rows]
+    per = {c[0]: c[1:] for c in cells if c[0] in names}
+    check(set(per) == set(names) and all(len(c) == 5 for c in per.values()),
+          f"the per-route table lacks rows: {sorted(set(names) - set(per))}")
+    agg = [c for c in cells if c[0] == str(len(names))]
+    check(len(agg) == 1 and len(agg[0]) == 6, "no aggregate row")
+    return {"per_route": per, "aggregate": agg[0]}
+
+
+def run_cli(main, argv, module, names):
+    """``main(argv)`` with the launch counts set to 0 just before it and
+    read just after, ``names`` of ``module`` timed: (its standard output,
+    the counts, the timings, wall seconds)."""
+    import io
+    import torch
+    buf = io.StringIO()
+    with timed_calls(module, names) as seen:
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    check(rc == 0, f"{module.__name__} {' '.join(argv)} returned {rc}")
+    return buf.getvalue(), counts, seen, wall
+
+
+def add_counts(total, counts):
+    total["k1"] += counts["k1"]
+    total["k2"] += counts["k2"]
+    for site, n in counts["k1_sites"].items():
+        total["k1_sites"][site] = total["k1_sites"].get(site, 0) + n
+
+
+def cli_phase(dev):
+    """The command-line front ends in-process on the card at full width
+    (``--scale 1.0``): (a) the GT campaign in one call and in two phases
+    through the teach checkpoint, held bit-equal; (b) the ours repeat phase
+    off that checkpoint, launching K1 at both sites and K2; (c) the
+    single-route teach -> repeat through the artefact files."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from nclt_slam_tpu_torch.cli import campaign as cli_campaign
+    from nclt_slam_tpu_torch.cli import repeat as cli_repeat
+    from nclt_slam_tpu_torch.cli import teach as cli_teach
+    from nclt_slam_tpu_torch.cli.common import config_for
+    from nclt_slam_tpu_torch.io.artifacts import load_landmarks_pkl
+    from nclt_slam_tpu_torch.scene.routes import ALL_ROUTES
+
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    ticks = str(CLI_TICKS)
+    substeps = config_for("gt").sim.nav_decimation
+    n_routes = len(ALL_ROUTES)
+    camp_names = ("build_campaign", "run_campaign_teach",
+                  "run_campaign_repeat", "save_checkpoint",
+                  "load_checkpoint", "tables", "write_metrics",
+                  "write_traces")
+    total = {"k1": 0, "k2": 0, "k1_sites": {}}
+    stats = {}
+
+    def campaign(tag, mode, out, *extra):
+        argv = ["--routes", "all", "--mode", mode, "--out", str(out),
+                "--teach-ticks", ticks, "--repeat-ticks", ticks,
+                "--scale", "1.0", *extra]
+        text, counts, seen, wall = run_cli(cli_campaign.main, argv,
+                                           cli_campaign, camp_names)
+        add_counts(total, counts)
+        row = {"wall_s": wall, "launches": counts}
+        for name, key in (("run_campaign_teach", "teach"),
+                          ("run_campaign_repeat", "repeat")):
+            s, n, res = seen[name]
+            if n:
+                # the ticks run: CLI_TICKS is one chunk, and the runners
+                # stop after it, or earlier once every route is done
+                t = res.trace.done.shape[1]
+                row[f"{key}_s"] = s
+                row[f"{key}_ms_per_tick"] = s / t * 1e3
+                row[f"{key}_env_steps_per_s"] = t * substeps * n_routes / s
+        for name in ("build_campaign", "save_checkpoint", "load_checkpoint",
+                     "tables", "write_metrics", "write_traces"):
+            if seen[name][1]:
+                row[f"{name}_s"] = seen[name][0]
+        stats[tag] = row
+        print(f"cli_{tag} " + json.dumps(row), flush=True)
+        return text
+
+    # (a) the GT campaign: one call, then two phases through the checkpoint
+    one, two = CLI_DIR / "gt_both", CLI_DIR / "gt_split"
+    campaign("gt_both", "gt", one)
+    campaign("gt_teach", "gt", two, "--phase", "teach")
+    shutil.copy(two / "teach_state.ckpt", CLI_DIR / "teach_state.ckpt")
+    gt_text = campaign("gt_repeat", "gt", two, "--phase", "repeat")
+    with np.load(one / "traces.npz") as a, np.load(two / "traces.npz") as b:
+        check(a.files == b.files, "cli: traces.npz keys differ")
+        diff = [k for k in a.files if not same_bits(a[k], b[k])]
+    check(not diff, f"cli: the split-phase GT campaign differs from the "
+          f"one-call run in {diff}")
+    ma, mb = (json.loads((d / "metrics.json").read_text()) for d in (one,
+                                                                    two))
+    check(ma == mb, "cli: the split-phase metrics.json differs")
+    parse_tables(gt_text, ALL_ROUTES)
+
+    # (b) the ours repeat phase off the same teach checkpoint
+    ours = CLI_DIR / "ours"
+    ours.mkdir()
+    shutil.copy(CLI_DIR / "teach_state.ckpt", ours)
+    text = campaign("ours_repeat", "ours", ours, "--phase", "repeat")
+    sites = stats["ours_repeat"]["launches"]["k1_sites"]
+    check(sites.get("vio", 0) > 0 and sites.get("matcher", 0) > 0,
+          f"cli: the ours repeat launched K1 at {sites}")
+    check(stats["ours_repeat"]["launches"]["k2"] > 0,
+          "cli: the ours repeat launched K2 no time")
+    with np.load(ours / "traces.npz") as z:
+        traces_finite((k, z[k]) for k in z.files if z[k].dtype.kind == "f")
+    tables = parse_tables(text, ALL_ROUTES)
+
+    # (c) one route: cli.teach -> cli.repeat through the files
+    td, rd = CLI_DIR / "teach", CLI_DIR / "repeat"
+    text, counts, seen, wall = run_cli(
+        cli_teach.main, ["--route", CLI_ROUTE, "--out", str(td),
+                         "--ticks", ticks], cli_teach,
+        ("run_teach", "write_teach_artifacts"))
+    add_counts(total, counts)
+    s, _, teach = seen["run_teach"]
+    stats["teach"] = {"wall_s": wall, "launches": counts, "teach_s": s,
+                      "teach_ms_per_tick": s / CLI_TICKS * 1e3,
+                      "teach_env_steps_per_s": CLI_TICKS * substeps / s,
+                      "write_teach_artifacts_s":
+                          seen["write_teach_artifacts"][0]}
+    print("cli_teach " + json.dumps(stats["teach"]), flush=True)
+    cfg = config_for("ours")
+    back = load_landmarks_pkl(td / "landmarks.pkl", cfg.landmarks, dev)
+    # the artefact holds each landmark's valid features only (the recorder
+    # packs them first), and its yaw as the reference's quaternion
+    # (sin, cos of half the yaw), which the reader turns back with atan2;
+    # the slots behind the features and last_pos / has_last are not part
+    # of it
+    valid = teach.store.feat_valid
+
+    def artefact(store, f):
+        x = getattr(store, f)
+        if f in ("desc", "p3d_cam", "uv"):
+            mask = valid.reshape(valid.shape + (1,) * (x.dim() - 3))
+            x = torch.where(mask, x, torch.zeros_like(x))
+        return x
+
+    yaw = np.array([[2.0 * np.arctan2(float(np.sin(0.5 * y)),
+                                      float(np.cos(0.5 * y))) for y in row]
+                    for row in teach.store.cam_yaw.cpu().numpy()], np.float32)
+    teach = teach._replace(store=teach.store._replace(
+        cam_yaw=torch.from_numpy(yaw).to(dev)))
+
+    diff = [f for f in back._fields if f not in ("last_pos", "has_last")
+            and not same_bits(artefact(back, f), artefact(teach.store, f))]
+    check(int(back.count[0]) > 0 and not diff,
+          f"cli: landmarks.pkl does not give the teach's store back: {diff}")
+    text, counts, seen, wall = run_cli(
+        cli_repeat.main, ["--route", CLI_ROUTE, "--teach-dir", str(td),
+                          "--out", str(rd), "--mode", "ours",
+                          "--ticks", ticks], cli_repeat,
+        ("run_repeat", "load_landmarks_pkl", "write_repeat_artifacts",
+         "write_metrics"))
+    add_counts(total, counts)
+    s = seen["run_repeat"][0]
+    stats["repeat"] = {
+        "wall_s": wall, "launches": counts, "repeat_s": s,
+        "repeat_ms_per_tick": s / CLI_TICKS * 1e3,
+        "repeat_env_steps_per_s": CLI_TICKS * substeps / s,
+        "load_landmarks_pkl_s": seen["load_landmarks_pkl"][0],
+        "write_repeat_artifacts_s": seen["write_repeat_artifacts"][0],
+        "write_metrics_s": seen["write_metrics"][0]}
+    print("cli_repeat " + json.dumps(stats["repeat"]), flush=True)
+    check(counts["k1_sites"].get("vio", 0) > 0 and counts["k2"] > 0,
+          f"cli: the single-route ours repeat launched {counts}")
+    m = json.loads((rd / "metrics.json").read_text())
+    check(m["gt_samples"] == CLI_TICKS and np.isfinite(m["final_d"]),
+          f"cli: the single-route repeat's metrics {m}")
+    nav = np.loadtxt(rd / "nav_pose.csv", delimiter=",", skiprows=1)
+    check(nav.shape == (CLI_TICKS, 3) and np.isfinite(nav).all(),
+          "cli: nav_pose.csv is not finite")
+    shutil.rmtree(CLI_DIR, ignore_errors=True)
+    stats["launches"] = total
+    stats["ours_aggregate_row"] = tables["aggregate"]
+    print("cli_phase " + json.dumps({"launches": total}), flush=True)
+    return stats
+
+
 def run() -> int:
     import torch
 
@@ -2784,6 +3027,7 @@ def run() -> int:
     base = baseline_main_path_phase(shared, dev)
     terrain_tex_phase(shared, ours_carry)
     slam = slam_main_path_phase(dev, card)
+    cli = cli_phase(dev)
     ours_profile = ours_profile_phase(shared, ours_carry)
     slam_profile_phase(dev)
 
@@ -2791,10 +3035,10 @@ def run() -> int:
     vio_row, _, matcher_row, odo_row, loop_row = k1_rows
     k1_launches = ours["launches"]["k1"] + rgbd_ba["launches"]["k1"] + \
         base["stock"]["launches"]["k1"] + base["encoder"]["launches"]["k1"] \
-        + rgbd_slam["k1_launches_rgbd_slam"]
+        + rgbd_slam["k1_launches_rgbd_slam"] + cli["launches"]["k1"]
     k2_launches = gt["launches"]["k2"] + ours["launches"]["k2"] + \
         rgbd_ba["launches"]["k2"] + base["stock"]["launches"]["k2"] + \
-        base["encoder"]["launches"]["k2"]
+        base["encoder"]["launches"]["k2"] + cli["launches"]["k2"]
     kernels = {"kernels": [
         {
             "name": "hamming_cross_check",
@@ -2815,7 +3059,8 @@ def run() -> int:
                 "stock": base["stock"]["launches"]["k1_sites"],
                 "encoder": base["encoder"]["launches"]["k1_sites"],
                 "rgbd_slam": {"rgbd_slam":
-                              rgbd_slam["k1_launches_rgbd_slam"]}},
+                              rgbd_slam["k1_launches_rgbd_slam"]},
+                "cli": cli["launches"]["k1_sites"]},
             "plan": vio_row["plan"],
             "launch_floor_ms": vio_row["launch_floor_ms"],
             "eager_ms": vio_row["eager_ms"],
@@ -2854,7 +3099,8 @@ def run() -> int:
                                  "rgbd_ba": rgbd_ba["launches"]["k2"],
                                  "stock": base["stock"]["launches"]["k2"],
                                  "encoder":
-                                     base["encoder"]["launches"]["k2"]},
+                                     base["encoder"]["launches"]["k2"],
+                                 "cli": cli["launches"]["k2"]},
             "coarse_shape": coarse["shape"],
             "coarse_ms": coarse["ms"],
             "coarse_plain_ms": coarse["plain_ms"],

@@ -310,6 +310,13 @@ def test_port_runs_without_jax():
         "sys.path.insert(0, 'tools')\n"
         "import torch_slam_scale_test as slam_tool\n"
         "import torch_calibrate\n"
+        "import torch_profile_stages\n"
+        "from nclt_slam_tpu_torch import analysis, io, utils\n"
+        "from nclt_slam_tpu_torch.analysis import campaign_figures, plots\n"
+        "from nclt_slam_tpu_torch.cli import analyze, campaign, common, "
+        "repeat, teach\n"
+        "from nclt_slam_tpu_torch.io import artifacts, native\n"
+        "from nclt_slam_tpu_torch.utils import profiling\n"
         "from nclt_slam_tpu_torch.datasets.slam import icp, loop_closure, "
         "pipeline, registration\n"
         "from nclt_slam_tpu_torch.ops import pgo\n"

@@ -34,6 +34,13 @@ runners' default seeds:
   sees), the per-frame inlier counts, the loop candidates and accepted
   flags, the open and optimized poses.
 
+- ``torch_cli_fixture.npz``: the command-line front ends at ``CLI_SCALE``
+  (a 20 x 15 depth-ray grid, the full-width map and window):
+  ``cli.campaign`` on ``CLI_ROUTES`` in the ``gt`` and ``ours`` modes with
+  ``cli_argv``'s arguments (its traces.npz, metrics.json and standard
+  output), and ``cli.teach`` then ``cli.repeat --mode ours`` on
+  ``CLI_ROUTE`` (the bytes of every file they write).
+
 - ``torch_slam_fixture.npz``: the LiDAR SLAM path, ``run_slam`` on the
   winter season of ``tools/slam_scale_test.py`` cut to ``SLAM_SCANS`` scans
   x ``SLAM_PTS`` points (on the tool's two laps, so that revisits fall on
@@ -47,8 +54,8 @@ runners' default seeds:
 
 ``chip_smoke.py`` replays the same campaigns and sessions on the card and
 compares.  The tool writes every file, or those of the modes named
-(``--mode slam gt ours rgbd_ba stock encoder rgbd_slam``; the last four
-share the ours teach):
+(``--mode slam gt ours rgbd_ba stock encoder rgbd_slam cli``; ours,
+rgbd_ba, stock and encoder share the ours teach):
 
     JAX_PLATFORMS=cpu python tools/make_torch_fixture.py [--mode stock ...]
 """
@@ -72,6 +79,7 @@ SLAM_OUT = DATA / "torch_slam_fixture.npz"
 STOCK_OUT = DATA / "torch_stock_campaign_fixture.npz"
 ENCODER_OUT = DATA / "torch_encoder_campaign_fixture.npz"
 RGBD_SLAM_OUT = DATA / "torch_rgbd_slam_fixture.npz"
+CLI_OUT = DATA / "torch_cli_fixture.npz"
 ROUTES = ("02_north_forest", "13_cross_nws")
 # two routes whose first landmark block survives the repeat session's
 # appearance death (LandmarkConfig.session_dead_frac), so that anchors
@@ -346,7 +354,79 @@ def write_rgbd_slam(out: Path):
         loop_j=np.asarray(lj), loop_accepted=np.asarray(accepted))
 
 
-MODES = ("slam", "gt", "ours", "rgbd_ba", "stock", "encoder", "rgbd_slam")
+# the command-line front ends: two routes for the campaign CLI, one for the
+# single-route teach -> repeat CLIs; the teach is long enough for two
+# waypoints a route (the GT repeat reaches both), the ours repeat stays
+# inside the relay's startup hold
+CLI_ROUTES = ("01_road", "08_nw_sw")
+CLI_ROUTE = "08_nw_sw"
+CLI_TEACH_TICKS = 60
+CLI_REPEAT_TICKS = 30
+CLI_SCALE = 0.25
+CLI_TEACH_FILES = ("teach_map.pgm", "teach_map.yaml", "landmarks.pkl",
+                   "vio_pose_dense.csv", "traj_gt.csv")
+CLI_REPEAT_FILES = ("traj_gt.csv", "nav_pose.csv", "metrics.json")
+
+
+def cli_argv(mode: str, out) -> list:
+    """``cli.campaign``'s arguments for the fixture (either package)."""
+    return ["--routes", ",".join(CLI_ROUTES), "--mode", mode,
+            "--out", str(out), "--teach-ticks", str(CLI_TEACH_TICKS),
+            "--repeat-ticks", str(CLI_REPEAT_TICKS),
+            "--scale", str(CLI_SCALE)]
+
+
+def teach_argv(out) -> list:
+    return ["--route", CLI_ROUTE, "--out", str(out),
+            "--ticks", str(CLI_TEACH_TICKS), "--scale", str(CLI_SCALE)]
+
+
+def repeat_argv(teach_dir, out) -> list:
+    return ["--route", CLI_ROUTE, "--teach-dir", str(teach_dir),
+            "--out", str(out), "--mode", "ours",
+            "--ticks", str(CLI_REPEAT_TICKS), "--scale", str(CLI_SCALE)]
+
+
+def write_cli(out: Path):
+    """The JAX package's CLIs run in-process: for each campaign mode, its
+    traces.npz arrays (``MODE_trace_KEY``), metrics.json text and standard
+    output; the single-route teach and repeat directories' files as bytes
+    (``teach/NAME``, ``repeat/NAME``) and the teach directory's path, which
+    teach_map.yaml names."""
+    import contextlib
+    import io
+    import tempfile
+
+    from nclt_slam_tpu.cli import campaign as jcampaign
+    from nclt_slam_tpu.cli import repeat as jrepeat
+    from nclt_slam_tpu.cli import teach as jteach
+
+    arrays = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for mode in ("gt", "ours"):
+            d = Path(tmp) / mode
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                jcampaign.main(cli_argv(mode, d))
+            arrays[f"{mode}_stdout"] = np.asarray(buf.getvalue())
+            arrays[f"{mode}_metrics"] = np.asarray(
+                (d / "metrics.json").read_text())
+            with np.load(d / "traces.npz") as z:
+                arrays.update({f"{mode}_trace_{k}": z[k] for k in z.files})
+        td, rd = Path(tmp) / "teach", Path(tmp) / "repeat"
+        jteach.main(teach_argv(td))
+        jrepeat.main(repeat_argv(td, rd))
+        for d, tag, names in ((td, "teach", CLI_TEACH_FILES),
+                              (rd, "repeat", CLI_REPEAT_FILES)):
+            for name in names:
+                arrays[f"{tag}/{name}"] = np.frombuffer(
+                    (d / name).read_bytes(), np.uint8)
+        arrays["teach_dir"] = np.asarray(str(td))
+    np.savez_compressed(out, **arrays)
+
+
+MODES = ("slam", "gt", "ours", "rgbd_ba", "stock", "encoder", "rgbd_slam",
+         "cli")
 
 
 def main(argv=None):
@@ -399,6 +479,9 @@ def main(argv=None):
     if "rgbd_slam" in modes:
         write_rgbd_slam(RGBD_SLAM_OUT)
         wrote(RGBD_SLAM_OUT)
+    if "cli" in modes:
+        write_cli(CLI_OUT)
+        wrote(CLI_OUT)
 
 
 if __name__ == "__main__":
