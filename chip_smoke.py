@@ -20,9 +20,10 @@ Phases, each of which must pass (any failure exits non-zero):
    shapes — 15 problems of 256 live features x 384 VIO map points, 75
    problems of 256 x 256, the matcher's grouped form (75
    stored-feature sets, five per route, against their route's 15 live
-   frames), and the RGB-D SLAM baseline's 139 odometry frame pairs and
-   16 loop candidates of 256 x 256 — with ~20 % invalid rows, shared rows (ties) and one
-   all-invalid problem; print its plan (a cluster of blocks a problem:
+   frames), the RGB-D SLAM baseline's 139 odometry frame pairs and
+   16 loop candidates of 256 x 256, and the dataset benchmark's one
+   problem of 256 x 384 — with ~20 % invalid rows, shared rows (ties) and
+   one all-invalid problem where there is more than one; print its plan (a cluster of blocks a problem:
    band rows, owned columns, threads, shared memory, the clusters the card
    holds at once) and time it, its plain version and an empty kernel of
    the same launch shape (the launch floor);
@@ -95,6 +96,18 @@ Phases, each of which must pass (any failure exits non-zero):
    observed rows differ from the fixture's and the pairs whose Kabsch
    starts tie below float32 resolution are printed; every count must be a
    tied start's, ``kabsch_ties``); ATE open and optimized;
+8d. replay the JAX reference sessions of the dataset benchmark
+   (``tests/data/torch_benchmark_fixture.npz``: the RobotCar dusk session,
+   vision-only with five drought windows, and the 4Seasons autumn session,
+   visual-inertial, 150 ticks each, at the CLI's seed) through
+   ``cli.benchmark._run_session`` and compare: the VIO's lost flags and
+   match counts equal every tick, the VIO track within 1e-3 m, the ground
+   truth within 1e-2 m, the yaw and the tick's mean IMU reading within
+   the bounds below;
+8e. generate the base scene, its grid, all 15 routes and the route walls
+   with the port's generator and hold them bit-equal to the port's
+   committed cache (``nclt_slam_tpu_torch/scene/data``); print the seconds
+   of each part;
 9. drive the GT-localized main path through the campaign API: 15 routes at
    full width, a GT teach, teach waypoints, a GT repeat with
    ``stop_when_done=False``; check that K2 was launched on it;
@@ -148,7 +161,15 @@ Phases, each of which must pass (any failure exits non-zero):
     landmark store read back from landmarks.pkl bit-equal to the one the
     teach held; print ms a tick and env steps/s of each, the checkpoint's
     write and read and the tables' and files' writing apart;
-12. profile a short window of the ours repeat, and one full-width ICP, for
+11e. run the dataset benchmark CLI in-process (``cli.benchmark --dataset
+    all --ticks 150 --device cuda`` into ``chiprun_out/benchmark``: the
+    RobotCar overcast and dusk and the 4Seasons spring and autumn sessions)
+    with the launch counts set to 0 just before it: K1 once a tick from
+    the VIO frame (600 launches) and no other kernel, every output file
+    written and every row finite; print ms a tick and env steps/s of each
+    session;
+12. profile a short window of the ours repeat and one of the dataset
+    benchmark's tick loop, and one full-width ICP, for
     the launches per tick (per ICP iteration), the device's busy share and
     K2's and K1's device time in the ours window (last, because the
     profiler slows every launch that follows it in the process).
@@ -196,9 +217,23 @@ DETERMINISM_TICKS = 100
 CLI_TICKS = 60
 CLI_ROUTE = "01_road"
 CLI_DIR = REPO / "build" / "cli_smoke"
+# the dataset benchmark CLI (phase 11e): its ticks a session (four
+# sessions) and its output tree; and the JAX reference sessions it replays
+# first (phase 8d) with the ours replay's tolerances, the tick's yaw and
+# mean IMU reading too (the IMU differentiates the 200 Hz pose twice)
+BENCH_CLI_TICKS = 150
+BENCH_CLI_DIR = REPO / "chiprun_out" / "benchmark"
+BENCH_FIXTURE = REPO / "tests" / "data" / "torch_benchmark_fixture.npz"
+BENCH_SESSIONS = (("robotcar", "dusk"), ("4seasons", "autumn"))
+FIX_BENCH_YAW_ATOL = 1e-3
+FIX_BENCH_GYRO_ATOL = 1e-3
+FIX_BENCH_ACCEL_ATOL = 1e-2
+SCENE_SEED = 7
+BENCH_PROFILE_TICKS = 20
 # K1 problems: (a-sets, A rows, b-sets, B rows), 8 words (256 bits) a row
 HAMMING_SHAPES = ((15, 256, 15, 384), (75, 256, 75, 256), (75, 256, 15, 256),
-                  (139, 256, 139, 256), (16, 256, 16, 256))
+                  (139, 256, 139, 256), (16, 256, 16, 256),
+                  (1, 256, 1, 384))   # the dataset benchmark's VIO frame
 DESC_WORDS = 8
 K1_CHECK_LAUNCHES = 10
 K1_TIMED_LAUNCHES = 200
@@ -541,7 +576,8 @@ def kernel_phase(dev):
 def hamming_inputs(shape, dev, seed: int = 1):
     """K1's check inputs at (P, A, Q, B): random words, b rows shared with
     and near (one bit off) the a rows of their group's first problem (ties
-    and matches), ~20 % invalid rows and one all-invalid problem."""
+    and matches), ~20 % invalid rows and, when P > 1, one all-invalid
+    problem."""
     import torch
     P, A, Q, B = shape
     W = DESC_WORDS
@@ -554,7 +590,8 @@ def hamming_inputs(shape, dev, seed: int = 1):
     db[:, n:n + n // 2] = da[::grp, n:n + n // 2] ^ 4  # near ties
     va = torch.rand(P, A, generator=g) > 0.2
     vb = torch.rand(Q, B, generator=g) > 0.2
-    va[P // 2] = False                                 # all invalid
+    if P > 1:
+        va[P // 2] = False                             # all invalid
     return [t.to(dev) for t in (da, va, db, vb)]
 
 
@@ -581,8 +618,8 @@ def hamming_phase(dev):
                 check(torch.equal(o, r), f"K1 {name} differs from its plain "
                       f"version at {(P, A, Q, B)} on launch {i}")
         check(bool(ref[1].any()), f"K1 at {(P, A, Q, B)}: nothing matched")
-        check(not ref[1][P // 2].any() and bool((ref[2][P // 2] == hm.BIG)
-                                                .all()),
+        check(P == 1 or (not ref[1][P // 2].any()
+                         and bool((ref[2][P // 2] == hm.BIG).all())),
               f"K1 at {(P, A, Q, B)}: the all-invalid problem matched")
         plan = hm.plan(P, A, B)
         n_clusters = hm.max_active_clusters(plan)
@@ -2665,6 +2702,41 @@ def ours_profile_phase(shared, carry):
     return stats
 
 
+def benchmark_profile_phase(dev):
+    """A profiled window of the dataset benchmark's tick loop (the RobotCar
+    dusk session, BENCH_PROFILE_TICKS ticks; its feature points built
+    before the window): launches a tick, the device's busy share and K1's
+    device time.  After every timed phase, as the ours window."""
+    import numpy as np
+    from nclt_slam_tpu_torch.cli import benchmark as bench
+
+    route, world, sessions, cfg = bench.dataset_sessions(
+        "robotcar", BENCH_PROFILE_TICKS)
+    ck, use_imu = sessions["dusk"]
+    inner = bench.build_scene_features
+    lo, hi = route.min(0) - 20.0, route.max(0) + 20.0   # _run_session's
+    feats = inner(*world, np.ones(len(world[0]), bool), cfg.landmarks,
+                  bounds=(lo[0], hi[0], lo[1], hi[1]))
+    bench.build_scene_features = lambda *a, **kw: feats
+    try:
+        launches, busy_s, wall, mine = profile_window(
+            lambda: bench._run_session(route, world, ck, use_imu, cfg,
+                                       BENCH_PROFILE_TICKS, dev, seed=11),
+            kernels=("cross_check_kernel",))
+    finally:
+        bench.build_scene_features = inner
+    k1_n, k1_s = mine["cross_check_kernel"]
+    check(k1_n == BENCH_PROFILE_TICKS,
+          f"the benchmark profile window shows {k1_n} K1 launches")
+    stats = dict(profiled_ticks=BENCH_PROFILE_TICKS,
+                 profiled_ms_per_tick=wall / BENCH_PROFILE_TICKS * 1e3,
+                 launches_per_tick=launches / BENCH_PROFILE_TICKS,
+                 device_busy_share=busy_s / wall, device_ms=busy_s * 1e3,
+                 k1_launches=k1_n, k1_device_ms=k1_s * 1e3)
+    print("benchmark_profile " + json.dumps(stats), flush=True)
+    return stats
+
+
 def rgbd_ba_main_path_phase(shared, dev):
     """The 15-route ``rgbd_ba`` repeat (VIO without the inertial term,
     anchors, GT-stall watchdog, local BA every tenth tick) off the ours
@@ -2758,9 +2830,9 @@ def timed_calls(module, names):
     """While the block runs, each call of ``module.<name>`` for ``name`` in
     ``names`` is timed on the host clock up to a synchronised card; yields
     {name: [seconds, calls]}.  The third item of a name's list is the
-    last call's result."""
+    last call's result, the fourth each call's seconds."""
     import torch
-    seen = {name: [0.0, 0, None] for name in names}
+    seen = {name: [0.0, 0, None, []] for name in names}
     inner = {name: getattr(module, name) for name in names}
 
     def wrap(name):
@@ -2769,7 +2841,8 @@ def timed_calls(module, names):
             out = inner[name](*a, **kw)
             torch.cuda.synchronize()
             rec = seen[name]
-            rec[0] += time.perf_counter() - t0
+            rec[3].append(time.perf_counter() - t0)
+            rec[0] += rec[3][-1]
             rec[1] += 1
             rec[2] = out
             return out
@@ -2861,7 +2934,7 @@ def cli_phase(dev):
         row = {"wall_s": wall, "launches": counts}
         for name, key in (("run_campaign_teach", "teach"),
                           ("run_campaign_repeat", "repeat")):
-            s, n, res = seen[name]
+            s, n, res, _ = seen[name]
             if n:
                 # the ticks run: CLI_TICKS is one chunk, and the runners
                 # stop after it, or earlier once every route is done
@@ -2914,7 +2987,7 @@ def cli_phase(dev):
                          "--ticks", ticks], cli_teach,
         ("run_teach", "write_teach_artifacts"))
     add_counts(total, counts)
-    s, _, teach = seen["run_teach"]
+    s, _, teach, _ = seen["run_teach"]
     stats["teach"] = {"wall_s": wall, "launches": counts, "teach_s": s,
                       "teach_ms_per_tick": s / CLI_TICKS * 1e3,
                       "teach_env_steps_per_s": CLI_TICKS * substeps / s,
@@ -2978,6 +3051,191 @@ def cli_phase(dev):
     return stats
 
 
+def benchmark_fixture_phase(dev):
+    """Replay the JAX reference sessions of the dataset benchmark
+    (``tests/data/torch_benchmark_fixture.npz``: the RobotCar dusk session,
+    vision-only with its drought windows, and the 4Seasons autumn session,
+    visual-inertial, 150 ticks each) through ``cli.benchmark._run_session``
+    and compare: the VIO's lost flags and match counts equal every tick,
+    the VIO track, the ground truth, the yaw and the tick's mean IMU
+    reading within the tolerances above."""
+    import numpy as np
+    from nclt_slam_tpu_torch.cli import benchmark as bench
+
+    fx = np.load(BENCH_FIXTURE)
+    ticks, seed = int(fx["ticks"]), int(fx["seed"])
+    reports = {}
+    for dataset, session in BENCH_SESSIONS:
+        route, world, sessions, cfg = bench.dataset_sessions(dataset, ticks,
+                                                             seed)
+        ck, use_imu = sessions[session]
+        pre = f"{dataset}/{session}/"
+        check(np.array_equal(ck, fx[pre + "cond_keep"]),
+              f"benchmark {dataset}/{session}: condition windows differ")
+        t0 = time.perf_counter()
+        tr = bench._run_session(route, world, ck, use_imu, cfg, ticks, dev,
+                                seed=seed)
+        wall = time.perf_counter() - t0
+
+        def err(field, tr=tr, pre=pre):
+            got = np.asarray(getattr(tr, field), np.float64)
+            return float(np.abs(got - fx[pre + field]).max())
+
+        gt_err, gt_start = divergence(tr.gt_xy[None], fx[pre + "gt_xy"][None])
+        vio_err, vio_start = divergence(tr.vio_xy[None],
+                                        fx[pre + "vio_xy"][None])
+        rep = dict(
+            ticks=ticks, use_imu=use_imu, drought_ticks=int((ck < 1).sum()),
+            ms_per_tick=wall / ticks * 1e3,
+            gt_xy_max_err_m=gt_err, gt_divergence_from_tick=gt_start,
+            vio_xy_max_err_m=vio_err, vio_divergence_from_tick=vio_start,
+            gt_yaw_max_err=err("gt_yaw"), gyro_max_err=err("gyro"),
+            accel_max_err=err("accel"),
+            lost_first_diff=first_diff(tr.lost[None], fx[pre + "lost"][None]),
+            n_tracked_first_diff=first_diff(tr.n_tracked[None],
+                                            fx[pre + "n_tracked"][None]),
+            lost_ticks=int(tr.lost.sum()),
+            n_tracked_min_max=[int(tr.n_tracked.min()),
+                               int(tr.n_tracked.max())])
+        reports[f"{dataset}/{session}"] = rep
+        print(f"benchmark_fixture {dataset}/{session} " + json.dumps(rep),
+              flush=True)
+        name = f"benchmark {dataset}/{session}"
+        for field in ("lost", "n_tracked"):
+            check(rep[f"{field}_first_diff"] is None,
+                  f"{name}: VIO {field} differs from the JAX fixture from "
+                  f"tick {rep[f'{field}_first_diff']}")
+        check(gt_err <= FIX_TEACH_ATOL_M, f"{name}: ground truth diverged "
+              f"({gt_err} m > {FIX_TEACH_ATOL_M} m)")
+        check(vio_err <= FIX_VIO_ATOL_M, f"{name}: VIO track diverged "
+              f"({vio_err} m > {FIX_VIO_ATOL_M} m)")
+        check(rep["gt_yaw_max_err"] <= FIX_BENCH_YAW_ATOL,
+              f"{name}: yaw diverged ({rep['gt_yaw_max_err']} rad)")
+        check(rep["gyro_max_err"] <= FIX_BENCH_GYRO_ATOL,
+              f"{name}: mean body rate differs by {rep['gyro_max_err']}")
+        check(rep["accel_max_err"] <= FIX_BENCH_ACCEL_ATOL,
+              f"{name}: mean specific force differs by "
+              f"{rep['accel_max_err']}")
+    return reports
+
+
+def scene_gen_phase():
+    """Generate the base scene, its grid, all 15 routes and the route walls
+    with the port's generator (host numpy) and hold every array bit-equal
+    to the port's committed cache (``nclt_slam_tpu_torch/scene/data``)."""
+    import numpy as np
+    from nclt_slam_tpu_torch.scene import colliders, routes
+
+    t0 = time.perf_counter()
+    base = colliders.build_scene(SCENE_SEED)
+    t_base = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    grid = routes.build_grid(base)
+    t_grid = time.perf_counter() - t0
+    route_s, gen = {}, {}
+    for name in routes.ALL_ROUTES:
+        t0 = time.perf_counter()
+        gen[name] = routes.generate_route(name, base, grid)
+        route_s[name] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    walled = colliders.add_route_walls(
+        base, [np.asarray(r.dense_xy[:r.n_dense], np.float64)
+               for r in gen.values()], SCENE_SEED)
+    t_walls = time.perf_counter() - t0
+
+    def same(a, b):
+        a, b = np.asarray(a), np.asarray(b)
+        return a.dtype == b.dtype and np.array_equal(a, b)
+
+    d = colliders.DATA_DIR
+    with np.load(d / f"scene_seed{SCENE_SEED}.npz") as z:
+        bad = [f for f in colliders.SceneColliders._fields
+               if not same(getattr(walled, f), z[f])]
+    check(not bad, f"scene generation: the walled scene differs from the "
+          f"committed cache in {bad}")
+    for name, r in gen.items():
+        with np.load(d / f"route_{name}_seed{SCENE_SEED}.npz") as z:
+            ok = (same(r.dense_xy, z["dense_xy"])
+                  and r.n_dense == int(z["n_dense"])
+                  and r.spawn_yaw == float(z["spawn_yaw"])
+                  and r.turnaround_idx == int(z["turnaround_idx"]))
+        check(ok, f"scene generation: route {name} differs from the "
+              f"committed cache")
+    times = list(route_s.values())
+    rep = dict(base_scene_s=t_base, grid_s=t_grid,
+               routes_s=sum(times), route_s_min=min(times),
+               route_s_max=max(times), route_s_mean=sum(times) / len(times),
+               walls_s=t_walls,
+               total_s=t_base + t_grid + sum(times) + t_walls,
+               colliders=[base.count, walled.count],
+               n_dense={n: r.n_dense for n, r in gen.items()})
+    print("scene_gen " + json.dumps(rep), flush=True)
+    return rep
+
+
+def benchmark_cli_phase(dev):
+    """Run ``cli.benchmark --dataset all`` in-process on the card
+    (``main(argv)``, four sessions of BENCH_CLI_TICKS ticks) with the
+    launch counts set to 0 just before it: K1 once a tick from the VIO
+    frame and no other kernel; every output file written, its rows finite.
+    Prints ms a tick and env steps/s (ticks x 20 substeps / wall s) of each
+    session."""
+    import shutil
+
+    import numpy as np
+    from nclt_slam_tpu_torch.cli import benchmark as bench
+
+    shutil.rmtree(BENCH_CLI_DIR, ignore_errors=True)
+    _, counts, seen, wall = run_cli(
+        bench.main, ["--dataset", "all", "--ticks", str(BENCH_CLI_TICKS),
+                     "--device", "cuda", "--out", str(BENCH_CLI_DIR)],
+        bench, ["_run_session"])
+    walls = seen["_run_session"][3]
+    names = [("robotcar", "overcast"), ("robotcar", "dusk"),
+             ("4seasons", "spring"), ("4seasons", "autumn")]
+    check(len(walls) == len(names), f"benchmark CLI: {len(walls)} sessions")
+    sessions = {
+        f"{dataset}/{session}": dict(
+            wall_s=w, ms_per_tick=w / BENCH_CLI_TICKS * 1e3,
+            env_steps_per_s=BENCH_CLI_TICKS * 20 / w)   # 20 substeps a tick
+        for (dataset, session), w in zip(names, walls)}
+    rows = {}
+    for dataset in ("robotcar", "4seasons"):
+        blob = json.loads((BENCH_CLI_DIR / f"{dataset}_bench.json")
+                          .read_text())
+        check(blob["n_ticks"] == BENCH_CLI_TICKS and
+              blob["reference"] == bench.REFERENCE_ROWS[dataset],
+              f"benchmark CLI: {dataset}_bench.json header")
+        check((BENCH_CLI_DIR / f"{dataset}_bench.md").is_file(),
+              f"benchmark CLI: no {dataset}_bench.md")
+        for session, row in blob["rows"].items():
+            d = BENCH_CLI_DIR / f"{dataset}_{session}"
+            check(np.isfinite(row["ate_rmse_m"])
+                  and 0.0 <= row["tracked_pct"] <= 100.0
+                  and row["frames"] == BENCH_CLI_TICKS - 100,
+                  f"benchmark CLI: {dataset}/{session} row {row}")
+            for f in ("mav0/cam0/data.csv", "mav0/imu0/data.csv",
+                      "mav0/state_groundtruth_estimate0/data.csv"):
+                n = len((d / f).read_text().splitlines())
+                check(n == BENCH_CLI_TICKS + 1,
+                      f"benchmark CLI: {d / f} has {n} lines")
+            for f in ("est_tum.txt", "gt_tum.txt") + (
+                    ("ins_pseudo_imu.csv",) if dataset == "robotcar" else ()):
+                check((d / f).is_file(), f"benchmark CLI: no {d / f}")
+            rows[f"{dataset}/{session}"] = row
+    k1 = counts["k1"]
+    check(k1 == len(names) * BENCH_CLI_TICKS
+          and counts["k1_sites"] == {"vio": k1},
+          f"benchmark CLI: K1 launched {counts['k1_sites']}, not once a "
+          f"tick from the VIO frame")
+    check(counts["k2"] == counts["k3"] == counts["k4"] == 0,
+          f"benchmark CLI: other kernels launched: {counts}")
+    stats = dict(ticks=BENCH_CLI_TICKS, wall_s=wall, sessions=sessions,
+                 rows=rows, launches=counts)
+    print("benchmark_cli " + json.dumps(stats), flush=True)
+    return stats
+
+
 def run() -> int:
     import torch
 
@@ -3018,6 +3276,8 @@ def run() -> int:
     stock_stall_phase(ours_fx, dev)
     del ours_fx
     slam_fixture_phase(dev)
+    benchmark_fixture_phase(dev)
+    scene_gen_phase()
     rgbd_slam = rgbd_slam_phase(dev)
     gt, gt_ctx = main_path_phase(dev)
     determinism = determinism_phase(*gt_ctx)
@@ -3028,14 +3288,17 @@ def run() -> int:
     terrain_tex_phase(shared, ours_carry)
     slam = slam_main_path_phase(dev, card)
     cli = cli_phase(dev)
+    bench_cli = benchmark_cli_phase(dev)
     ours_profile = ours_profile_phase(shared, ours_carry)
+    bench_profile = benchmark_profile_phase(dev)
     slam_profile_phase(dev)
 
     window, coarse = k2_rows
-    vio_row, _, matcher_row, odo_row, loop_row = k1_rows
+    vio_row, _, matcher_row, odo_row, loop_row, bench_row = k1_rows
     k1_launches = ours["launches"]["k1"] + rgbd_ba["launches"]["k1"] + \
         base["stock"]["launches"]["k1"] + base["encoder"]["launches"]["k1"] \
-        + rgbd_slam["k1_launches_rgbd_slam"] + cli["launches"]["k1"]
+        + rgbd_slam["k1_launches_rgbd_slam"] + cli["launches"]["k1"] + \
+        bench_cli["launches"]["k1"]
     k2_launches = gt["launches"]["k2"] + ours["launches"]["k2"] + \
         rgbd_ba["launches"]["k2"] + base["stock"]["launches"]["k2"] + \
         base["encoder"]["launches"]["k2"] + cli["launches"]["k2"]
@@ -3060,7 +3323,8 @@ def run() -> int:
                 "encoder": base["encoder"]["launches"]["k1_sites"],
                 "rgbd_slam": {"rgbd_slam":
                               rgbd_slam["k1_launches_rgbd_slam"]},
-                "cli": cli["launches"]["k1_sites"]},
+                "cli": cli["launches"]["k1_sites"],
+                "benchmark": bench_cli["launches"]["k1_sites"]},
             "plan": vio_row["plan"],
             "launch_floor_ms": vio_row["launch_floor_ms"],
             "eager_ms": vio_row["eager_ms"],
@@ -3071,6 +3335,14 @@ def run() -> int:
             "matcher_plan": matcher_row["plan"],
             "matcher_launch_floor_ms": matcher_row["launch_floor_ms"],
             "matcher_eager_ms": matcher_row["eager_ms"],
+            "benchmark_shape": bench_row["shape"],
+            "benchmark_ms": bench_row["ms"],
+            "benchmark_plain_ms": bench_row["plain_ms"],
+            "benchmark_bound_ms": bench_row["bound_ms"],
+            "benchmark_bound_by": bench_row["bound_by"],
+            "benchmark_launch_floor_ms": bench_row["launch_floor_ms"],
+            "benchmark_eager_ms": bench_row["eager_ms"],
+            "benchmark_plan": bench_row["plan"],
             "rgbd_slam_rows": [
                 {k: row[k] for k in ("shape", "ms", "plain_ms", "bound_ms",
                                      "bound_by", "eager_ms",
@@ -3080,6 +3352,10 @@ def run() -> int:
                 "ticks": PROFILE_TICKS,
                 "launches": ours_profile["k1_launches"],
                 "device_ms": ours_profile["k1_device_ms"]},
+            "benchmark_profile_window": {
+                "ticks": BENCH_PROFILE_TICKS,
+                "launches": bench_profile["k1_launches"],
+                "device_ms": bench_profile["k1_device_ms"]},
         },
         {
             "name": "wavefront_relax",

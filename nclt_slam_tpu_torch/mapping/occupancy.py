@@ -29,6 +29,16 @@ def world_to_cell(x, y, cfg: MapConfig):
     return r, c
 
 
+def cell_to_world(r, c, cfg: MapConfig):
+    """Cell (row, col) -> world (x, y) of its centre."""
+    return (cfg.origin_x + (c + 0.5) * cfg.resolution,
+            cfg.origin_y + (r + 0.5) * cfg.resolution)
+
+
+def in_bounds(r, c, cfg: MapConfig):
+    return (r >= 0) & (r < cfg.rows) & (c >= 0) & (c < cfg.cols)
+
+
 def _window_index(r0, c0, h: int, w: int):
     """(rows (B, h, 1), cols (B, 1, w)) int64 indices of a per-route crop
     whose top-left corner is (r0, c0)."""

@@ -189,3 +189,26 @@ def cam_points_to_world(p_cam, base_pos, yaw, cfg: CameraConfig):
     origin, R_wc = camera_pose(base_pos, yaw, cfg)
     shape = (origin.shape[0],) + (1,) * (p_cam.dim() - 2) + (3,)
     return _rotate(R_wc, p_cam) + origin.reshape(shape)
+
+
+def sample_depth_at_pixels(base_pos, yaw, us, vs, obs_xy, obs_r, obs_base_z,
+                           obs_h, obs_valid, cfg: CameraConfig):
+    """Depth for arbitrary full-res pixels (u, v) — the landmark
+    recorder's back-projection of feature points.  base_pos (B, 3), yaw
+    (B,), us and vs (B, K), obs_* (B, N).  Returns (depth_z (B, K),
+    valid (B, K))."""
+    origin, R_wc = camera_pose(base_pos, yaw, cfg)
+    x = (us - cfg.cx) / cfg.fx
+    y = (vs - cfg.cy) / cfg.fy
+    d = torch.stack([x, y, torch.ones_like(x)], -1)
+    d = d / torch.sqrt((d * d).sum(-1, keepdim=True))      # (B, K, 3)
+    dirs_w = _rotate(R_wc, d)[:, :, None, :]               # (B, K, 1, 3)
+
+    t_terr = _terrain_hit(origin, dirs_w, cfg)[..., 0]
+    t_cyl = _cylinder_hit(origin, dirs_w, obs_xy, obs_r, obs_base_z, obs_h,
+                          obs_valid, cfg)[..., 0]
+    t = torch.minimum(t_terr, t_cyl)
+    valid = torch.isfinite(t) & (t <= cfg.depth_max)
+    t_safe = torch.where(valid, t, torch.full_like(t, cfg.depth_max))
+    depth_z = t_safe * d[..., 2]
+    return torch.where(valid, depth_z, torch.zeros_like(depth_z)), valid

@@ -334,6 +334,15 @@ def test_port_runs_without_jax():
         "np.zeros((len(li), 3)), found, 'cpu')\n"
         "fast = loop_closure.optimize_pose_graph_fast(graph, iters=3)\n"
         "assert fast.shape == (40, 3) and torch.isfinite(fast).all()\n"
+        "from nclt_slam_tpu_torch.cli import benchmark, generate_routes\n"
+        "from nclt_slam_tpu_torch.io import euroc, ins_imu, rover\n"
+        "from nclt_slam_tpu_torch.datasets import calibration, loaders\n"
+        "from nclt_slam_tpu_torch.datasets.utils import gps, imu_utils, "
+        "point_cloud\n"
+        "from nclt_slam_tpu_torch.scene import colliders, routes\n"
+        "from nclt_slam_tpu_torch.sensors.depth import sample_depth_at_pixels\n"
+        "from nclt_slam_tpu_torch.mapping.occupancy import cell_to_world, "
+        "in_bounds\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m == 'nclt_slam_tpu' or m.startswith(('jax.', 'jaxlib', 'nclt_slam_tpu.'))]\n"
         "assert not bad, bad\n"

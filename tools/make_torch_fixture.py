@@ -52,10 +52,20 @@ runners' default seeds:
   odometry edges), the junctions of its host-reduced graph and JAX's dense
   and interpret-mode K4 solutions of that.
 
+- ``torch_benchmark_fixture.npz``: the dataset benchmark CLI
+  (``cli/benchmark.py``) at its default seed: ``_run_session`` of the
+  RobotCar dusk session (vision-only, with its drought windows) and of the
+  4Seasons autumn session (visual-inertial), ``BENCH_TICKS`` ticks each,
+  the sessions built as ``run_dataset`` builds them for that many ticks
+  (``gt_xy``, ``gt_yaw``, ``vio_xy``, ``lost``, ``n_tracked``, ``gyro``,
+  ``accel``); and what ``run_dataset`` writes for each dataset at
+  ``BENCH_SMALL_TICKS`` ticks: the JSON and markdown texts, the files of
+  its output tree with each one's first line and line count.
+
 ``chip_smoke.py`` replays the same campaigns and sessions on the card and
 compares.  The tool writes every file, or those of the modes named
-(``--mode slam gt ours rgbd_ba stock encoder rgbd_slam cli``; ours,
-rgbd_ba, stock and encoder share the ours teach):
+(``--mode slam gt ours rgbd_ba stock encoder rgbd_slam cli benchmark``;
+ours, rgbd_ba, stock and encoder share the ours teach):
 
     JAX_PLATFORMS=cpu python tools/make_torch_fixture.py [--mode stock ...]
 """
@@ -80,6 +90,7 @@ STOCK_OUT = DATA / "torch_stock_campaign_fixture.npz"
 ENCODER_OUT = DATA / "torch_encoder_campaign_fixture.npz"
 RGBD_SLAM_OUT = DATA / "torch_rgbd_slam_fixture.npz"
 CLI_OUT = DATA / "torch_cli_fixture.npz"
+BENCH_OUT = DATA / "torch_benchmark_fixture.npz"
 ROUTES = ("02_north_forest", "13_cross_nws")
 # two routes whose first landmark block survives the repeat session's
 # appearance death (LandmarkConfig.session_dead_frac), so that anchors
@@ -425,8 +436,87 @@ def write_cli(out: Path):
     np.savez_compressed(out, **arrays)
 
 
+# the dataset benchmark: the replayed sessions' ticks, and a run_dataset
+# just past _evaluate's 100 settle ticks
+BENCH_TICKS = 150
+BENCH_SMALL_TICKS = 105
+BENCH_SEED = 11
+BENCH_SESSIONS = (("robotcar", "dusk"), ("4seasons", "autumn"))
+
+
+def bench_sessions(jb, n_ticks: int, seed: int = BENCH_SEED):
+    """``run_dataset``'s sessions, drawn in its order: {dataset: (route,
+    world, {session: (cond_keep, use_imu)}, cfg)}."""
+    from nclt_slam_tpu import config as cfg_mod
+
+    out = {}
+    for dataset in ("robotcar", "4seasons"):
+        rng = np.random.default_rng(seed)
+        if dataset == "robotcar":
+            route = jb._loop_route(834.0, rng)
+            world = jb._facade_world(route, rng)
+            sessions = {
+                "overcast": (jb._condition_windows(n_ticks, rng, 1,
+                                                   keep=0.15), False),
+                "dusk": (jb._condition_windows(n_ticks, rng, 5, frac_lo=0.04,
+                                               frac_hi=0.09, keep=0.03),
+                         False)}
+            cfg = cfg_mod.rgbd_no_imu()
+        else:
+            route = jb._loop_route(700.0, rng, aspect=0.6, wobble=9.0)
+            world = jb._facade_world(route, rng, offset=8.0, every=5.0,
+                                     radius=0.9)
+            sessions = {
+                "spring": (np.ones(n_ticks, np.float32), True),
+                "autumn": (jb._condition_windows(n_ticks, rng, 1,
+                                                 frac_lo=0.01, frac_hi=0.02,
+                                                 keep=0.3), True)}
+            cfg = cfg_mod.ours()
+        out[dataset] = (route, world, sessions, cfg)
+    return out
+
+
+def write_benchmark(out: Path):
+    import contextlib
+    import io
+    import tempfile
+
+    from nclt_slam_tpu.cli import benchmark as jb
+
+    arrays = dict(ticks=np.int32(BENCH_TICKS), seed=np.int32(BENCH_SEED),
+                  small_ticks=np.int32(BENCH_SMALL_TICKS))
+    setup = bench_sessions(jb, BENCH_TICKS)
+    for dataset, session in BENCH_SESSIONS:
+        route, world, sessions, cfg = setup[dataset]
+        ck, use_imu = sessions[session]
+        tr = jb._run_session(route, world, ck, use_imu, cfg, BENCH_TICKS,
+                             chunk=BENCH_TICKS, seed=BENCH_SEED)
+        arrays[f"{dataset}/{session}/cond_keep"] = ck
+        for name, value in tr._asdict().items():
+            arrays[f"{dataset}/{session}/{name}"] = np.asarray(value)
+    with tempfile.TemporaryDirectory() as tmp:
+        for dataset in ("robotcar", "4seasons"):
+            d = Path(tmp)
+            with contextlib.redirect_stdout(io.StringIO()):
+                jb.run_dataset(dataset, d, BENCH_SMALL_TICKS, "cpu",
+                               export=True, seed=BENCH_SEED)
+            arrays[f"run/{dataset}_bench.json"] = np.asarray(
+                (d / f"{dataset}_bench.json").read_text())
+            arrays[f"run/{dataset}_bench.md"] = np.asarray(
+                (d / f"{dataset}_bench.md").read_text())
+        files = sorted(str(p.relative_to(tmp)) for p in Path(tmp).rglob("*")
+                       if p.is_file())
+        arrays["run/files"] = np.asarray(files)
+        lines = [(Path(tmp) / f).read_text().splitlines() for f in files]
+        arrays["run/first_lines"] = np.asarray([ln[0] if ln else ""
+                                                for ln in lines])
+        arrays["run/n_lines"] = np.asarray([len(ln) for ln in lines])
+        arrays["run/tmp"] = np.asarray(str(tmp))
+    np.savez_compressed(out, **arrays)
+
+
 MODES = ("slam", "gt", "ours", "rgbd_ba", "stock", "encoder", "rgbd_slam",
-         "cli")
+         "cli", "benchmark")
 
 
 def main(argv=None):
@@ -482,6 +572,9 @@ def main(argv=None):
     if "cli" in modes:
         write_cli(CLI_OUT)
         wrote(CLI_OUT)
+    if "benchmark" in modes:
+        write_benchmark(BENCH_OUT)
+        wrote(BENCH_OUT)
 
 
 if __name__ == "__main__":
