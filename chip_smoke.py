@@ -72,7 +72,7 @@ Phases, each of which must pass (any failure exits non-zero):
    phases) and the follower's final state; the encoder repeat's dynamics
    and relay; then force the stock stack's stall branches, which the stock
    campaigns do not reach: the same two routes' stock repeat with the
-   wheels pinned and route 1's spawn lethal in its teach map, 350 ticks;
+   wheels pinned and route 1's spawn lethal in its teach map, 320 ticks;
    RPP's progress checker must enter recovery on route 0 (its entries in
    the trace equal to the controller's count) and the dispatcher must
    block route 1's goal;
@@ -117,6 +117,13 @@ Phases, each of which must pass (any failure exits non-zero):
    coarse potential among them) and the potential of every
    ``plan_window`` call (run-to-run determinism on K2's path, where
    ``integrate_depth`` sums with ``scatter_add_``);
+9c. run the same GT repeat through ``parallel.sharded_campaign_repeat``
+   over a device list naming the card twice (15 routes padded to 16, 8 a
+   shard, a host thread each), launch counts set to 0 just before it:
+   every real route held against 9b's first run (positions within the GT
+   replay's repeat bound, discrete outcomes equal; whether it came out
+   bit-equal is printed), the pad route bit-equal to route 15; ms a tick
+   beside the one-call run, ``route_mesh()``'s device count;
 10. drive the ours main path through the campaign API: the 15-route
    campaign at full width, a VIO teach (``config.gt_localization()``), the
    aligned-VIO teach waypoints and a full-stack repeat (``config.ours()``:
@@ -162,12 +169,31 @@ Phases, each of which must pass (any failure exits non-zero):
     teach held; print ms a tick and env steps/s of each, the checkpoint's
     write and read and the tables' and files' writing apart;
 11e. run the dataset benchmark CLI in-process (``cli.benchmark --dataset
-    all --ticks 150 --device cuda`` into ``chiprun_out/benchmark``: the
+    all --ticks 120 --device cuda`` into ``chiprun_out/benchmark``: the
     RobotCar overcast and dusk and the 4Seasons spring and autumn sessions)
     with the launch counts set to 0 just before it: K1 once a tick from
-    the VIO frame (600 launches) and no other kernel, every output file
+    the VIO frame (480 launches) and no other kernel, every output file
     written and every row finite; print ms a tick and env steps/s of each
     session;
+11f. run the live drive server in-process (``cli.live.main`` on a
+    thread: ``--route 01_road --mode ours --teach-ticks 300 --chunk 25
+    --max-chunks 8`` on a free port), launch counts set to 0 just before
+    it, and drive it over HTTP: the page, ``/scene.json``, ``/depth.png``
+    (its signature and a 320x240 IHDR), ``/state.json`` until the tick
+    advances, a POSTed goal seen in the state; K1 at both sites and K2
+    launched; the drive loop's exception fails the run; print s to the
+    first state and ms a tick of the chunks;
+11g. train the place-recognition model (``datasets/transforms``,
+    ``pairs``, ``models/place_recognition``) for one epoch on 4,000 scans
+    of 4,096 points made from ``--seed`` (two sessions of 2,000 poses on
+    a 4 km loop, 1,700 trunks): 250 steps of 16 mined tuples (16 x 7
+    scans) through the training transforms, ``voxelize``, ``embed``, the
+    pair triplet loss and Adam(1e-2); each of the first five steps redone
+    on the CPU from the card's parameters (loss within 1e-4, gradients
+    within 1e-4 of each leaf's largest, transform masks bit-equal), the
+    loss falling over the epoch; Recall@1 (a hit inside 10 m) and AP of
+    session-1 queries against session 0; ms a step, s an epoch, transform
+    and voxelize ms a batch, embeddings/s;
 12. profile a short window of the ours repeat and one of the dataset
     benchmark's tick loop, and one full-width ICP, for
     the launches per tick (per ICP iteration), the device's busy share and
@@ -199,14 +225,14 @@ RGBD_BA_FIXTURE = REPO / "tests" / "data" / \
     "torch_rgbd_ba_campaign_fixture.npz"
 SLAM_FIXTURE = REPO / "tests" / "data" / "torch_slam_fixture.npz"
 
-TEACH_TICKS = 500
-REPEAT_TICKS = 300
+TEACH_TICKS = 200
+REPEAT_TICKS = 150
 OURS_TEACH_TICKS = 500
 OURS_REPEAT_TICKS = 300
-RGBD_BA_REPEAT_TICKS = 300
-RGBD_REPEAT_TICKS = 100
+RGBD_BA_REPEAT_TICKS = 120
+RGBD_REPEAT_TICKS = 60
 BA_PERIOD = 10                        # local BA runs at tick % 10 == 3
-PROFILE_TICKS = 10
+PROFILE_TICKS = 5
 KERNEL_SHAPES = ((15, 192, 192), (15, 119, 232))
 KERNEL_ITERS = 384
 K2_CHECK_LAUNCHES = 10
@@ -214,14 +240,14 @@ DETERMINISM_TICKS = 100
 # the command-line front ends (phase 11d): teach and repeat ticks of every
 # CLI run (past the ours relay's 49-tick startup hold), the single-route
 # CLIs' route, and where they write (gitignored)
-CLI_TICKS = 60
+CLI_TICKS = 50
 CLI_ROUTE = "01_road"
 CLI_DIR = REPO / "build" / "cli_smoke"
 # the dataset benchmark CLI (phase 11e): its ticks a session (four
 # sessions) and its output tree; and the JAX reference sessions it replays
 # first (phase 8d) with the ours replay's tolerances, the tick's yaw and
 # mean IMU reading too (the IMU differentiates the 200 Hz pose twice)
-BENCH_CLI_TICKS = 150
+BENCH_CLI_TICKS = 120
 BENCH_CLI_DIR = REPO / "chiprun_out" / "benchmark"
 BENCH_FIXTURE = REPO / "tests" / "data" / "torch_benchmark_fixture.npz"
 BENCH_SESSIONS = (("robotcar", "dusk"), ("4seasons", "autumn"))
@@ -229,7 +255,32 @@ FIX_BENCH_YAW_ATOL = 1e-3
 FIX_BENCH_GYRO_ATOL = 1e-3
 FIX_BENCH_ACCEL_ATOL = 1e-2
 SCENE_SEED = 7
-BENCH_PROFILE_TICKS = 20
+# the place-recognition learning path: two sessions on a ~4 km loop, poses
+# 2 m apart, a fixed world of trunks along it, 4,096 points a scan around
+# the nearest 48 trunks; one epoch of 16 mined tuples (16 x 7 scans) a step
+PR_LOOP_M = 4000.0
+PR_POSES = 2000
+PR_TRUNKS = 1700
+PR_POINTS = 4096
+PR_NEAR = 48
+PR_BATCH = 16
+PR_TRANSFORMS = {"point_cloud": {"voxel_size": 0.1, "max_points": 3072},
+                 "augmentation": {"random_rotation": True,
+                                  "rotation_range": 5.0, "jitter": 0.01}}
+PR_CPU_STEPS = 5
+PR_LOSS_RTOL = 1e-4
+PR_GRAD_RTOL = 1e-4      # of the leaf's largest gradient (3.7e-6 seen)
+# the route batch over a device list naming the card twice (15 -> 16
+# routes, 8 a shard), held against the one-call GT repeat: positions within
+# the GT replay's repeat bound, discrete outcomes equal
+MESH_ATOL_M = 5e-2
+MESH_DISCRETE = ("wp_idx", "done", "fired", "plan_fails", "goal_blocked")
+# the live drive server in-process: an ours drive of one route in chunks
+LIVE_TEACH_TICKS = 300
+LIVE_CHUNK = 25
+LIVE_CHUNKS = 8
+LIVE_DEADLINE_S = 300
+BENCH_PROFILE_TICKS = 5
 # K1 problems: (a-sets, A rows, b-sets, B rows), 8 words (256 bits) a row
 HAMMING_SHAPES = ((15, 256, 15, 384), (75, 256, 75, 256), (75, 256, 15, 256),
                   (139, 256, 139, 256), (16, 256, 16, 256),
@@ -383,13 +434,14 @@ KABSCH_TIE_GAP = 2.0 ** -20
 # port's, on the CPU)
 KABSCH_TIE_POSE_ATOL = 1e-5
 # the stock and encoder campaigns off the ours teach, their fixture replays
-BASELINE_REPEAT_TICKS = 300
+BASELINE_REPEAT_TICKS = 100
 STOCK_FIXTURE = REPO / "tests" / "data" / "torch_stock_campaign_fixture.npz"
 ENCODER_FIXTURE = REPO / "tests" / "data" / \
     "torch_encoder_campaign_fixture.npz"
 STOCK_DISCRETE = ("goal_blocked", "plan_fails", "recovery_phase")
-# the forced stall: RPP's progress checker allows 30 s (300 ticks)
-STALL_TICKS = 350
+# the forced stall: RPP's progress checker allows 30 s (300 ticks), so its
+# recovery starts at tick 301
+STALL_TICKS = 320
 # CameraConfig.ray_terrain_tex: the baked texture is within this of the
 # analytic field (tests/test_scene.py::test_terrain_tex_matches_analytic)
 TEX_HEIGHT_BOUND_M = 0.02
@@ -2508,19 +2560,22 @@ def same_bits(a, b) -> bool:
 def determinism_phase(data, teach, wps, n_wps, cfg):
     """The GT repeat twice from one teach and one config: every trace, every
     tensor of the final state (the costmaps among them) and every
-    ``plan_window`` potential bit-equal."""
+    ``plan_window`` potential bit-equal.  Returns the stats and (the first
+    run, the faster run's wall seconds) for the mesh phase."""
     import numpy as np
     import torch
     from nclt_slam_tpu_torch.planning import wavefront as planner
     from nclt_slam_tpu_torch.rollout import campaign
 
-    runs = []
+    runs, walls = [], []
     for _ in range(2):
+        t0 = time.perf_counter()
         with record_potentials(planner) as pots:
             rep = campaign.run_campaign_repeat(
                 data, teach.teach_grid, wps, n_wps, cfg, DETERMINISM_TICKS,
                 stop_when_done=False)
         torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
         runs.append((rep, pots))
     (a, pa), (b, pb) = runs
     check(len(pa) > 0 and len(pa) == len(pb),
@@ -2546,10 +2601,10 @@ def determinism_phase(data, teach, wps, n_wps, cfg):
     check(not diffs, "the GT repeat differs between two runs: "
           + "; ".join(diffs[:10]))
     stats = dict(ticks=executed(DETERMINISM_TICKS), plan_window_calls=len(pa),
-                 final_leaves=len(final))
+                 final_leaves=len(final), wall_s=walls)
     print("gt_determinism: two runs bit-equal (traces, every final state "
           "tensor, plan_window potentials) " + json.dumps(stats), flush=True)
-    return stats
+    return stats, (a, min(walls))
 
 
 def profile_window(fn, kernels=()):
@@ -2561,8 +2616,10 @@ def profile_window(fn, kernels=()):
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    # CUDA activity alone records the runtime's launch calls and the
+    # kernels without an event for every operator, whose collection took
+    # most of a profiled phase's time
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -2570,6 +2627,7 @@ def profile_window(fn, kernels=()):
     ka = prof.key_averages()
     launches = sum(e.count for e in ka
                    if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC"))
+    check(launches > 0, "the profiler recorded no kernel launch")
     on_card = [e for e in ka
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in on_card)
@@ -3236,7 +3294,378 @@ def benchmark_cli_phase(dev):
     return stats
 
 
-def run() -> int:
+def pr_world(seed: int, dev):
+    """The place-recognition data, made from ``seed``: two sessions of
+    PR_POSES poses each, PR_SPACING_M apart on a loop of PR_LOOP_M, each
+    pose offset laterally by N(0, 1.5 m) (the JAX test's
+    ``_two_session_loop``); a fixed world of PR_TRUNKS trunks along the
+    corridor; a scan of PR_POINTS points around each pose's nearest
+    PR_NEAR trunks (0.2-6 m up the trunk, N(0, 0.15 m) noise), built on
+    the card.  Returns (coords (N, 3) numpy, session (N,) numpy, scans
+    (N, PR_POINTS, 3) on ``dev``)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    radius = PR_LOOP_M / (2 * np.pi)
+    coords, session = [], []
+    for s in range(2):
+        t = np.linspace(0, 2 * np.pi, PR_POSES, endpoint=False)
+        xy = radius * np.stack([np.cos(t), np.sin(t)], -1)
+        xy += rng.normal(0, 1.5, xy.shape)
+        coords.append(np.concatenate([xy, np.zeros((PR_POSES, 1))], 1))
+        session.append(np.full(PR_POSES, s))
+    coords, session = np.concatenate(coords), np.concatenate(session)
+    ang = rng.uniform(0, 2 * np.pi, PR_TRUNKS)
+    r = radius + rng.uniform(-12.0, 15.0, PR_TRUNKS)
+    trees = np.stack([r * np.cos(ang), r * np.sin(ang)], -1)
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    pos = torch.from_numpy(coords[:, :2]).to(dev, torch.float32)
+    tr = torch.from_numpy(trees).to(dev, torch.float32)
+    rel = tr[None] - pos[:, None]                             # (N, T, 2)
+    near = torch.argsort(torch.linalg.vector_norm(rel, dim=-1), dim=1,
+                         stable=True)[:, :PR_NEAR]
+    trunk = near[:, torch.arange(PR_POINTS, device=dev) % PR_NEAR]
+    xy = torch.gather(rel, 1, trunk[..., None].expand(-1, -1, 2))
+    z = 0.2 + 5.8 * torch.rand(len(coords), PR_POINTS, 1, generator=gen,
+                               device=dev)
+    scans = torch.cat([xy, z], -1) + 0.15 * torch.randn(
+        len(coords), PR_POINTS, 3, generator=gen, device=dev)
+    return coords, session, scans
+
+
+def pr_loss(leaves, scans, batch, pipe, key):
+    """The pair loss of one batch of mined (anchor, positive, negatives)
+    indices into ``scans``, through the training transforms (``key``),
+    ``voxelize`` and ``embed``: (loss, the transform mask)."""
+    import numpy as np
+    import torch
+    from nclt_slam_tpu_torch.datasets import pairs, transforms
+    from nclt_slam_tpu_torch.datasets.models import place_recognition as pr
+
+    a, p, n = batch
+    B = len(a)
+    idx = torch.from_numpy(np.concatenate([a, p, n.reshape(-1)])
+                           .astype(np.int64)).to(scans.device)
+    pts = scans[idx]
+    mask = torch.ones(pts.shape[:2], dtype=torch.bool, device=scans.device)
+    pts, mask = transforms.apply_batch(pipe, key, pts, mask)
+    e = pr.embed(pr.PRParams(*leaves), pr.voxelize(pts, mask))
+    loss = pairs.triplet_loss_pairs(e[:B], e[B:2 * B],
+                                    e[2 * B:].reshape(B, -1, e.shape[-1]))
+    return loss, mask
+
+
+def pr_train(params, scans, batches, pipe, keys, lr, record=0):
+    """Adam(``lr``) over ``batches``, one transform key a batch: (losses,
+    step seconds, the trained parameters, and for each of the first
+    ``record`` steps its parameters before the step, its gradients and its
+    transform mask, on the host)."""
+    import torch
+    from nclt_slam_tpu_torch.datasets.models import place_recognition as pr
+
+    leaves = [p.detach().clone().requires_grad_() for p in params]
+    opt = torch.optim.Adam(leaves, lr=lr)
+    losses, step_s, records = [], [], []
+    for i, (batch, key) in enumerate(zip(batches, keys)):
+        t0 = time.perf_counter()
+        before = [x.detach().cpu().clone() for x in leaves] \
+            if i < record else None
+        loss, mask = pr_loss(leaves, scans, batch, pipe, key)
+        opt.zero_grad()
+        loss.backward()
+        if i < record:
+            records.append((before, [x.grad.cpu().clone() for x in leaves],
+                            mask.cpu()))
+        opt.step()
+        losses.append(loss.item())          # waits for the step
+        step_s.append(time.perf_counter() - t0)
+    return losses, step_s, pr.PRParams(*(x.detach() for x in leaves)), \
+        records
+
+
+def place_recognition_phase(dev, seed: int):
+    """The learning path at a size users train at: PR_POSES x 2 scans of
+    PR_POINTS points from ``pr_world``; ``mine_pairs`` on the poses; one
+    epoch of batches of PR_BATCH mined tuples (anchor, positive, 5
+    negatives: 16 x 7 scans) through ``apply_batch(build_transforms(
+    PR_TRANSFORMS, is_train=True))``, ``voxelize``, ``embed``,
+    ``triplet_loss_pairs`` and an Adam(1e-2) step (the protocol of the JAX
+    package's ``tests/test_datasets.py:446-514``); then session-1 queries
+    against the session-0 database: Recall@1 (a hit inside 10 m) and the
+    average precision of the top-1 distances.  Guards: each of the first
+    PR_CPU_STEPS steps redone on the CPU from the card's parameters before
+    it, with the same batch and key: its loss within PR_LOSS_RTOL, its
+    gradients within PR_GRAD_RTOL of each leaf's largest, its transform
+    masks bit-equal; the mean of the last 20 losses below the mean of the
+    first 20.  A free-running CPU run of the same steps is printed beside
+    them: from step 1 on, Adam turns gradients that round differently
+    around 0 into +-lr steps, so it leaves the card's run by more."""
+    import numpy as np
+    import torch
+    from nclt_slam_tpu_torch.core import prng
+    from nclt_slam_tpu_torch.datasets import pairs, transforms
+    from nclt_slam_tpu_torch.datasets.models import place_recognition as pr
+    from nclt_slam_tpu_torch.eval import average_precision
+
+    t0 = time.perf_counter()
+    coords, session, scans = pr_world(seed, dev)
+    torch.cuda.synchronize()
+    world_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mined = pairs.mine_pairs(coords, seed=seed)
+    mine_s = time.perf_counter() - t0
+    batches = list(pairs.pairs_epoch_batches(mined, PR_BATCH, seed=seed))
+    check(len(batches) >= 40, f"place recognition: {len(batches)} batches")
+    base = prng.PRNGKey(seed, dev)
+    keys = [prng.fold_in(base, i) for i in range(len(batches))]
+    pipe = transforms.build_transforms(PR_TRANSFORMS, is_train=True)
+    params = pr.init_params(prng.PRNGKey(seed + 1, dev))
+
+    t0 = time.perf_counter()
+    losses, step_s, trained, records = pr_train(
+        params, scans, batches, pipe, keys, 1e-2, record=PR_CPU_STEPS)
+    torch.cuda.synchronize()
+    epoch_s = time.perf_counter() - t0
+    check(all(np.isfinite(losses)), "place recognition: a loss is not finite")
+    first, last = float(np.mean(losses[:20])), float(np.mean(losses[-20:]))
+    check(last < first, f"place recognition: the loss did not fall "
+          f"({first:.4f} -> {last:.4f})")
+
+    # the first steps on the CPU, each from the card's parameters before it
+    scans_cpu = scans.cpu()
+    loss_err, grad_err = [], []
+    for i, (before, grads, mask_card) in enumerate(records):
+        leaves = [x.clone().requires_grad_() for x in before]
+        loss, mask_cpu = pr_loss(leaves, scans_cpu, batches[i], pipe,
+                                 keys[i].cpu())
+        loss.backward()
+        check(torch.equal(mask_cpu, mask_card), f"place recognition: the "
+              f"transform masks of step {i} differ between the card and "
+              f"the CPU")
+        loss_err.append(abs(losses[i] - loss.item()) / abs(loss.item()))
+        grad_err.append(max(float((g - x.grad).abs().max()
+                                  / x.grad.abs().max())
+                            for g, x in zip(grads, leaves)))
+    check(max(loss_err) <= PR_LOSS_RTOL and max(grad_err) <= PR_GRAD_RTOL,
+          f"place recognition: the card's first steps leave the CPU's: "
+          f"losses {loss_err}, gradients {grad_err}")
+    # a free-running CPU run of the same steps, for the record: Adam's
+    # normalized step turns a gradient within rounding of 0 into +-lr
+    cpu_losses = pr_train([x.cpu() for x in records[0][0]], scans_cpu,
+                          batches[:PR_CPU_STEPS], pipe,
+                          [k.cpu() for k in keys[:PR_CPU_STEPS]], 1e-2)[0]
+    free_err = [abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses)]
+    del scans_cpu
+
+    # transform and voxelize of one batch, each alone (CUDA events)
+    a, p, n = batches[0]
+    idx = torch.from_numpy(np.concatenate([a, p, n.reshape(-1)])
+                           .astype(np.int64)).to(dev)
+    pts, ones = scans[idx], torch.ones(len(idx), PR_POINTS, dtype=torch.bool,
+                                       device=dev)
+    tf_ms = time_cuda(lambda: transforms.apply_batch(pipe, keys[0], pts,
+                                                     ones), 10)
+    tpts, tmask = transforms.apply_batch(pipe, keys[0], pts, ones)
+    vox_ms = time_cuda(lambda: pr.voxelize(tpts, tmask), 10)
+
+    # evaluation: every scan voxelized and embedded
+    with torch.no_grad():
+        full = torch.ones(PR_POINTS, dtype=torch.bool, device=dev)
+        grids = torch.cat([pr.voxelize(scans[s:s + 500], full.expand(
+            len(scans[s:s + 500]), -1)) for s in range(0, len(scans), 500)])
+
+        def embed_all():
+            return torch.cat([pr.embed(trained, grids[s:s + 500])
+                              for s in range(0, len(grids), 500)])
+
+        emb_ms = time_cuda(embed_all, 3)
+        emb = embed_all()
+        q = torch.from_numpy(session == 1).to(dev)
+        db = torch.from_numpy(session == 0).to(dev)
+        qe, dbe = emb[q], emb[db]
+        best_d, best = [], []
+        for s in range(0, len(qe), 256):
+            diff = qe[s:s + 256, None] - dbe[None]
+            d = torch.sqrt((diff * diff).sum(-1))
+            v, i = d.min(1)
+            best_d.append(v)
+            best.append(i)
+        best_d, best = torch.cat(best_d).cpu().numpy(), \
+            torch.cat(best).cpu().numpy()
+    cq, cdb = coords[session == 1], coords[session == 0]
+    hit = np.linalg.norm(cq - cdb[best], axis=-1) < 10.0
+    ap = average_precision(-best_d, hit)
+    check(np.isfinite(emb.cpu().numpy()).all(), "place recognition: "
+          "an embedding is not finite")
+    stats = dict(
+        poses=len(coords), points=PR_POINTS, trunks=PR_TRUNKS,
+        grid=list(pr.VOXEL_GRID), grids_mb=grids.numel() * 4 / 1e6,
+        mined=len(mined.anchor), steps=len(batches), batch=PR_BATCH,
+        world_s=world_s, mine_s=mine_s, epoch_s=epoch_s,
+        ms_per_step=float(np.mean(step_s[PR_CPU_STEPS:]) * 1e3),
+        first_step_ms=step_s[0] * 1e3,
+        transform_ms_per_batch=tf_ms, voxelize_ms_per_batch=vox_ms,
+        embeddings_per_s=len(grids) / (emb_ms / 1e3),
+        loss_first20=first, loss_last20=last,
+        cpu_step_loss_rel_err=loss_err, cpu_step_grad_rel_err=grad_err,
+        cpu_free_run_loss_rel_err=free_err, recall_at_1=float(hit.mean()),
+        average_precision=ap)
+    print("place_recognition " + json.dumps(stats), flush=True)
+    return stats
+
+
+def mesh_phase(gt_ctx, one_call):
+    """The GT repeat through ``parallel.sharded_campaign_repeat`` over a
+    device list naming the one card twice: 15 routes padded to 16, 8 a
+    shard, DETERMINISM_TICKS ticks, launch counts set to 0 just before.
+    Every real route is held against the determinism phase's one-call run
+    (``one_call``: its RepeatResult and wall seconds) within MESH_ATOL_M,
+    its discrete outcomes equal; whether it came out bit-equal is printed.
+    The pad route must equal route 15 bit for bit."""
+    import numpy as np
+    import torch
+    from nclt_slam_tpu_torch import parallel
+
+    data, teach, wps, n_wps, cfg = gt_ctx
+    ref, ref_s = one_call
+    dev = wps.device
+    n_cards = len(parallel.route_mesh())
+    reset_counts()
+    t0 = time.perf_counter()
+    rep = parallel.sharded_campaign_repeat(data, teach.teach_grid, wps, n_wps,
+                                           cfg, DETERMINISM_TICKS,
+                                           mesh=[dev, dev])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    n = len(data.names)
+    padded = -(-n // 2) * 2
+    check(rep.trace.gt_xy.shape[0] == padded and rep.final.robot.xy.shape[0]
+          == padded and rep.final.robot.xy.device == dev,
+          f"mesh: padded batch {rep.trace.gt_xy.shape}")
+    check(counts["k2"] > 0, "mesh: K2 launched no time")
+    pad = [f for f in rep.trace._fields
+           if not same_bits(getattr(rep.trace, f)[n],
+                            getattr(rep.trace, f)[n - 1])]
+    check(not pad, f"mesh: the pad route differs from route {n}: {pad}")
+    gap = float(np.abs(rep.trace.gt_xy[:n] - ref.trace.gt_xy).max())
+    check(gap <= MESH_ATOL_M, f"mesh: routes leave the one-call run by "
+          f"{gap} m")
+    for f in MESH_DISCRETE:
+        check(np.array_equal(getattr(rep.trace, f)[:n],
+                             getattr(ref.trace, f)),
+              f"mesh: {f} differs from the one-call run")
+    bit_equal = {f: same_bits(getattr(rep.trace, f)[:n],
+                              getattr(ref.trace, f))
+                 for f in rep.trace._fields}
+    ticks = executed(DETERMINISM_TICKS)
+    stats = dict(shards=2, routes=n, padded=padded, ticks=ticks,
+                 route_mesh_devices=n_cards, wall_s=wall,
+                 ms_per_tick=wall / ticks * 1e3,
+                 one_call_ms_per_tick=ref_s / ticks * 1e3,
+                 max_gap_m=gap, bit_equal=all(bit_equal.values()),
+                 fields_not_bit_equal=[f for f, v in bit_equal.items()
+                                       if not v],
+                 launches=counts)
+    print("mesh " + json.dumps(stats), flush=True)
+    return stats
+
+
+def _http(port, path, body=None):
+    import urllib.request
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", method="POST" if body else "GET",
+        data=json.dumps(body).encode() if body else None)
+    with urllib.request.urlopen(req, timeout=10) as r:
+        return r.read()
+
+
+def live_phase(dev):
+    """``cli.live.main`` in-process on a thread (``--route 01_road --mode
+    ours --teach-ticks 300 --chunk 25 --max-chunks 8`` on a free port),
+    launch counts set to 0 just before: fetch the page, the scene, the
+    depth PNG (its signature and a 320x240 IHDR) and the state until its
+    tick advances; POST a goal and see it in the state.  The drive loop's
+    exception fails the run (the future's result is read).  K1 must launch
+    at both sites (VIO frame, matcher) and K2 at the planner."""
+    import socket
+    import struct
+    import torch
+    from nclt_slam_tpu_torch.cli import live
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    argv = ["--route", "01_road", "--mode", "ours", "--teach-ticks",
+            str(LIVE_TEACH_TICKS), "--chunk", str(LIVE_CHUNK),
+            "--max-chunks", str(LIVE_CHUNKS), "--port", str(port),
+            "--device", str(dev)]
+    deadline = time.perf_counter() + LIVE_DEADLINE_S
+
+    def state():
+        return json.loads(_http(port, "/state.json"))
+
+    def wait(cond, what):
+        while time.perf_counter() < deadline:
+            if fut.done():
+                fut.result()                      # raises the loop's error
+                check(False, f"live: the drive ended before {what}")
+            try:
+                st = state()
+                if cond(st):
+                    return st
+            except OSError:
+                pass
+            time.sleep(0.2)
+        check(False, f"live: no {what} within {LIVE_DEADLINE_S} s")
+
+    with timed_calls(live, ["run_repeat", "run_campaign_teach"]) as seen, \
+            ThreadPoolExecutor(1) as pool:
+        reset_counts()
+        t0 = time.perf_counter()
+        fut = pool.submit(live.main, argv)
+        st = wait(lambda s: s.get("tick", 0) >= LIVE_CHUNK, "first state")
+        first_s = time.perf_counter() - t0
+        check(b"live drive" in _http(port, "/"), "live: no page")
+        scene = json.loads(_http(port, "/scene.json"))
+        check(scene["obstacles"] and scene["wps"]
+              and len(scene["bounds"]) == 4, "live: scene.json")
+        png = _http(port, "/depth.png")
+        check(png[:8] == b"\x89PNG\r\n\x1a\n" and png[12:16] == b"IHDR"
+              and struct.unpack(">II", png[16:24]) == (320, 240),
+              f"live: depth.png header {png[:24]!r}")
+        tick0 = st["tick"]
+        st = wait(lambda s: s["tick"] > tick0, "advancing tick")
+        x, y = st["gt"][-1]
+        goal = {"x": x + 6.0, "y": y + 4.0}
+        _http(port, "/goal", goal)
+        st = wait(lambda s: s.get("goal") == [goal["x"], goal["y"]],
+                  "goal in the state")
+        check(fut.result(timeout=max(deadline - time.perf_counter(), 1))
+              == 0, "live: main returned non-zero")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+    chunks = seen["run_repeat"][3]
+    check(len(chunks) == LIVE_CHUNKS, f"live: {len(chunks)} chunks ran")
+    sites = counts["k1_sites"]
+    check(sites.get("vio", 0) > 0 and sites.get("matcher", 0) > 0
+          and counts["k2"] > 0, f"live: launches {counts}")
+    stats = dict(
+        route="01_road", mode="ours", teach_ticks=LIVE_TEACH_TICKS,
+        chunks=len(chunks), chunk=LIVE_CHUNK, wall_s=wall,
+        teach_s=seen["run_campaign_teach"][0],
+        first_state_s=first_s,
+        ms_per_tick=sum(chunks) / (len(chunks) * LIVE_CHUNK) * 1e3,
+        goal_seen_at_tick=st["tick"], png_bytes=len(png),
+        launches=counts)
+    print("live " + json.dumps(stats), flush=True)
+    return stats
+
+
+def run(seed: int = 0) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -3263,45 +3692,58 @@ def run() -> int:
     check(not torch.backends.cuda.matmul.allow_tf32
           and not torch.backends.cudnn.allow_tf32, "TF32 is on")
 
-    build_phase()
-    k2_rows = kernel_phase(dev)
-    k1_rows = hamming_phase(dev)
-    k3 = ba_phase(dev)
-    k4 = pgo_phase(dev)
-    pgo_determinism = pgo_determinism_phase(dev)
-    fixture_phase(dev)
-    ours_fx = ours_fixture_phase(dev)
-    rgbd_ba_fixture_phase(ours_fx, dev)
-    baseline_fixture_phase(ours_fx, dev)
-    stock_stall_phase(ours_fx, dev)
+    phase_s = {}
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        res = fn(*args)
+        phase_s[fn.__name__] = time.perf_counter() - t0
+        return res
+
+    timed(build_phase)
+    k2_rows = timed(kernel_phase, dev)
+    k1_rows = timed(hamming_phase, dev)
+    k3 = timed(ba_phase, dev)
+    k4 = timed(pgo_phase, dev)
+    pgo_determinism = timed(pgo_determinism_phase, dev)
+    timed(fixture_phase, dev)
+    ours_fx = timed(ours_fixture_phase, dev)
+    timed(rgbd_ba_fixture_phase, ours_fx, dev)
+    timed(baseline_fixture_phase, ours_fx, dev)
+    timed(stock_stall_phase, ours_fx, dev)
     del ours_fx
-    slam_fixture_phase(dev)
-    benchmark_fixture_phase(dev)
-    scene_gen_phase()
-    rgbd_slam = rgbd_slam_phase(dev)
-    gt, gt_ctx = main_path_phase(dev)
-    determinism = determinism_phase(*gt_ctx)
-    del gt_ctx
-    ours, shared, ours_carry = ours_main_path_phase(dev)
-    rgbd_ba = rgbd_ba_main_path_phase(shared, dev)
-    base = baseline_main_path_phase(shared, dev)
-    terrain_tex_phase(shared, ours_carry)
-    slam = slam_main_path_phase(dev, card)
-    cli = cli_phase(dev)
-    bench_cli = benchmark_cli_phase(dev)
-    ours_profile = ours_profile_phase(shared, ours_carry)
-    bench_profile = benchmark_profile_phase(dev)
-    slam_profile_phase(dev)
+    timed(slam_fixture_phase, dev)
+    timed(benchmark_fixture_phase, dev)
+    timed(scene_gen_phase)
+    rgbd_slam = timed(rgbd_slam_phase, dev)
+    gt, gt_ctx = timed(main_path_phase, dev)
+    determinism, one_call = timed(determinism_phase, *gt_ctx)
+    mesh = timed(mesh_phase, gt_ctx, one_call)
+    del gt_ctx, one_call
+    ours, shared, ours_carry = timed(ours_main_path_phase, dev)
+    rgbd_ba = timed(rgbd_ba_main_path_phase, shared, dev)
+    base = timed(baseline_main_path_phase, shared, dev)
+    timed(terrain_tex_phase, shared, ours_carry)
+    slam = timed(slam_main_path_phase, dev, card)
+    cli = timed(cli_phase, dev)
+    bench_cli = timed(benchmark_cli_phase, dev)
+    live = timed(live_phase, dev)
+    place_recognition = timed(place_recognition_phase, dev, seed)
+    ours_profile = timed(ours_profile_phase, shared, ours_carry)
+    bench_profile = timed(benchmark_profile_phase, dev)
+    timed(slam_profile_phase, dev)
+    print("phase_seconds " + json.dumps(phase_s), flush=True)
 
     window, coarse = k2_rows
     vio_row, _, matcher_row, odo_row, loop_row, bench_row = k1_rows
     k1_launches = ours["launches"]["k1"] + rgbd_ba["launches"]["k1"] + \
         base["stock"]["launches"]["k1"] + base["encoder"]["launches"]["k1"] \
         + rgbd_slam["k1_launches_rgbd_slam"] + cli["launches"]["k1"] + \
-        bench_cli["launches"]["k1"]
+        bench_cli["launches"]["k1"] + live["launches"]["k1"]
     k2_launches = gt["launches"]["k2"] + ours["launches"]["k2"] + \
         rgbd_ba["launches"]["k2"] + base["stock"]["launches"]["k2"] + \
-        base["encoder"]["launches"]["k2"] + cli["launches"]["k2"]
+        base["encoder"]["launches"]["k2"] + cli["launches"]["k2"] + \
+        mesh["launches"]["k2"] + live["launches"]["k2"]
     kernels = {"kernels": [
         {
             "name": "hamming_cross_check",
@@ -3324,7 +3766,8 @@ def run() -> int:
                 "rgbd_slam": {"rgbd_slam":
                               rgbd_slam["k1_launches_rgbd_slam"]},
                 "cli": cli["launches"]["k1_sites"],
-                "benchmark": bench_cli["launches"]["k1_sites"]},
+                "benchmark": bench_cli["launches"]["k1_sites"],
+                "live": live["launches"]["k1_sites"]},
             "plan": vio_row["plan"],
             "launch_floor_ms": vio_row["launch_floor_ms"],
             "eager_ms": vio_row["eager_ms"],
@@ -3376,7 +3819,9 @@ def run() -> int:
                                  "stock": base["stock"]["launches"]["k2"],
                                  "encoder":
                                      base["encoder"]["launches"]["k2"],
-                                 "cli": cli["launches"]["k2"]},
+                                 "cli": cli["launches"]["k2"],
+                                 "mesh": mesh["launches"]["k2"],
+                                 "live": live["launches"]["k2"]},
             "coarse_shape": coarse["shape"],
             "coarse_ms": coarse["ms"],
             "coarse_plain_ms": coarse["plain_ms"],
@@ -3447,9 +3892,15 @@ def run() -> int:
     return 0
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one "
+                                 "CUDA card.")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the place-recognition data and model")
+    args = ap.parse_args(argv)
     try:
-        return run()
+        return run(args.seed)
     except SmokeError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

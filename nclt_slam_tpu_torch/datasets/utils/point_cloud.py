@@ -27,7 +27,10 @@ def voxel_downsample(pts, valid, voxel: float, out_cap: int,
                      bound: float = 200.0):
     """Fixed-shape voxel-grid downsample: keep (up to ``out_cap``) the first
     valid point of each occupied voxel.  Deterministic."""
-    key_int = torch.floor((pts + bound) / voxel).to(torch.int32)
+    # a tensor divisor: CUDA divides by a Python scalar as a product with
+    # its reciprocal, which rounds some quotients differently
+    size = torch.tensor(voxel, dtype=pts.dtype, device=pts.device)
+    key_int = torch.floor((pts + bound) / size).to(torch.int32)
     dims = int(2 * bound / voxel) + 1
     # int32 arithmetic wraps like XLA's (the JAX package's int64 is int32)
     h = (key_int[:, 0] * dims + key_int[:, 1]) * dims + key_int[:, 2]

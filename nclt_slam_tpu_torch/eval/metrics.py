@@ -1,7 +1,8 @@
 """Metric engine — port of the reference's thesis metrics (the campaign
 half of ``nclt_slam_tpu/eval/metrics.py`` and its 2-D Procrustes
-alignments, copied as numpy, and the trajectory errors ATE/RPE of the LiDAR
-SLAM path).
+alignments, copied as numpy, the trajectory errors ATE/RPE of the LiDAR
+SLAM path, and the place-recognition precision/recall curve and average
+precision).
 
 compute_metrics.py semantics, bit-comparable where the inputs align:
 - directional WP coverage: split teach WPs and the GT trace at the
@@ -234,3 +235,21 @@ def rpe_rmse(est: np.ndarray, gt: np.ndarray, delta: int = 10) -> float:
     g = gt[delta:] - gt[:-delta]
     return float(np.sqrt(((np.linalg.norm(e, axis=-1)
                            - np.linalg.norm(g, axis=-1)) ** 2).mean()))
+
+
+def pr_curve(scores: np.ndarray, is_match: np.ndarray):
+    """Precision/recall curve over match scores (higher = more confident),
+    the Kaggle place-recognition evaluation protocol
+    (datasets/nclt_kaggle/src/evaluation/metrics.py)."""
+    order = np.argsort(-scores)
+    tp = np.cumsum(is_match[order])
+    fp = np.cumsum(~is_match[order])
+    precision = tp / np.maximum(tp + fp, 1)
+    recall = tp / max(int(is_match.sum()), 1)
+    return precision, recall
+
+
+def average_precision(scores: np.ndarray, is_match: np.ndarray) -> float:
+    p, r = pr_curve(scores, is_match)
+    return float(np.trapezoid(p, r)) if hasattr(np, "trapezoid") \
+        else float(np.trapz(p, r))

@@ -2,7 +2,8 @@
 
 ``from_numpy_tree`` turns a tree of the JAX package's state — packed
 scenes and routes, teach and repeat carries, traces, results, PRNG keys,
-the SLAM path's pose graphs, local maps and ICP / registration results —
+the SLAM path's pose graphs, local maps and ICP / registration results,
+the place-recognition model's parameters and mined pairs —
 into the port's NamedTuples of tensors, matched by type and field name;
 ``to_numpy_tree`` turns the port's state back into numpy.  The leaves are
 numpy arrays (or anything ``np.asarray`` takes, such as a JAX array), so
@@ -26,6 +27,8 @@ import torch
 @functools.lru_cache(maxsize=1)
 def _registry() -> dict:
     from nclt_slam_tpu_torch.control import pure_pursuit, supervisor
+    from nclt_slam_tpu_torch.datasets import pairs
+    from nclt_slam_tpu_torch.datasets.models import place_recognition
     from nclt_slam_tpu_torch.datasets.slam import icp, loop_closure, registration
     from nclt_slam_tpu_torch.dynamics import diffdrive
     from nclt_slam_tpu_torch.fusion import relay
@@ -48,6 +51,7 @@ def _registry() -> dict:
         campaign.CampaignData, ba.BAProblem, ba.BAResult,
         loop_closure.PoseGraph2D, icp.ICPResult, icp.LocalMap,
         registration.RegistrationResult,
+        place_recognition.PRParams, pairs.MinedPairs,
     ]
     return {t.__name__: t for t in types}
 

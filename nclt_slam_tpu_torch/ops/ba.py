@@ -141,6 +141,7 @@ def plan(B: int, K: int, P: int, cluster: int | None = None) -> Plan:
 
 _lib = None
 _lib_lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def build_library() -> Path:
@@ -264,9 +265,10 @@ def solve_ba_cuda(prob, cam: CameraConfig, cfg: VioConfig,
     if B == 0 or P == 0:
         raise ValueError(f"solve_ba: empty problem ({B} windows, {P} points)")
     out = launch(prob, cam, cfg, n_iter, plan(B, K, P))
-    solve_ba_cuda.launches += 1
-    solve_ba_cuda.site_launches[site] = \
-        solve_ba_cuda.site_launches.get(site, 0) + 1
+    with _count_lock:   # shards of a mesh launch from several threads
+        solve_ba_cuda.launches += 1
+        solve_ba_cuda.site_launches[site] = \
+            solve_ba_cuda.site_launches.get(site, 0) + 1
     return out
 
 

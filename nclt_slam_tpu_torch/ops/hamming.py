@@ -186,6 +186,7 @@ def plan(P: int, A: int, B: int, cluster: int | None = None) -> Plan:
 
 _lib = None
 _lib_lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def build_library() -> Path:
@@ -298,8 +299,10 @@ def cross_check(desc_a, valid_a, desc_b, valid_b, max_dist: int = 64,
     if B == 0:
         raise ValueError("cross_check: empty b set")
     out = launch(desc_a, valid_a, desc_b, valid_b, max_dist, plan(P, A, B))
-    cross_check.launches += 1
-    cross_check.site_launches[site] = cross_check.site_launches.get(site, 0) + 1
+    with _count_lock:   # shards of a mesh launch from several threads
+        cross_check.launches += 1
+        cross_check.site_launches[site] = \
+            cross_check.site_launches.get(site, 0) + 1
     return out
 
 

@@ -41,6 +41,7 @@ PANEL = 32                # the kernel's panel width (kB in csrc/pgo.cu)
 
 _lib = None
 _lib_lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def build_library() -> Path:
@@ -97,9 +98,10 @@ def optimize_pgo_cuda(graph, odo_w, iters: int = 15, lc_w: float = 10.0,
     if err != 0:
         raise RuntimeError(f"optimize_pgo kernel launch failed: CUDA error "
                            f"{err}")
-    optimize_pgo_cuda.launches += 1
-    optimize_pgo_cuda.site_launches[site] = \
-        optimize_pgo_cuda.site_launches.get(site, 0) + 1
+    with _count_lock:   # shards of a mesh launch from several threads
+        optimize_pgo_cuda.launches += 1
+        optimize_pgo_cuda.site_launches[site] = \
+            optimize_pgo_cuda.site_launches.get(site, 0) + 1
     return out
 
 

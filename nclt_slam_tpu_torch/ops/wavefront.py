@@ -161,6 +161,7 @@ def _launch_shape(H: int, W: int, halo: int | None = None) -> Plan:
 
 _lib = None
 _lib_lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def build_library() -> Path:
@@ -223,7 +224,8 @@ def wavefront_relax(tc, phi0, n_iter: int):
                                   plan.rows, plan.smem_bytes, stream)
     if err != 0:
         raise RuntimeError(f"wavefront kernel launch failed: CUDA error {err}")
-    wavefront_relax.launches += 1
+    with _count_lock:   # shards of a mesh launch from several threads
+        wavefront_relax.launches += 1
     return out
 
 

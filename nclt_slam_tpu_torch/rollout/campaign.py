@@ -112,7 +112,8 @@ def run_campaign_teach(data: CampaignData, cfg: Config, n_ticks: int,
                        chunk: int = 250, progress=None,
                        stop_when_done: bool = True) -> TeachResult:
     """Batched teach over every route; stops early at a chunk boundary once
-    every route is done (unless ``stop_when_done`` is False)."""
+    every row of the batch is done (unless ``stop_when_done`` is False),
+    whatever ``data.names`` holds."""
     n_chunks, chunk = planned_chunks(n_ticks, chunk)
     carry = init_teach_carry(data.routes, cfg)
     traces = []
@@ -122,10 +123,10 @@ def run_campaign_teach(data: CampaignData, cfg: Config, n_ticks: int,
                         carry=carry, tick0=t0)
         carry = res.final
         traces.append(res.trace)
-        n_done = int(res.trace.done[:, -1].sum())
+        done = res.trace.done[:, -1]
         if progress:
-            progress(t0 + chunk, n_ticks, n_done)
-        if stop_when_done and n_done == len(data.names):
+            progress(t0 + chunk, n_ticks, int(done.sum()))
+        if stop_when_done and bool(done.all()):
             break
     trace = _concat_traces(TeachTrace, traces, n_ticks)
     n_valid = torch.from_numpy((~trace.done).sum(1).astype(np.int32))
@@ -203,10 +204,10 @@ def run_campaign_repeat(data: CampaignData, teach_grids, wps, n_wps,
                          tick0=t0)
         carry = res.final
         traces.append(res.trace)
-        n_done = int(res.trace.done[:, -1].sum())
+        done = res.trace.done[:, -1]
         if progress:
-            progress(t0 + chunk, n_ticks, n_done)
-        if stop_when_done and n_done == len(data.names):
+            progress(t0 + chunk, n_ticks, int(done.sum()))
+        if stop_when_done and bool(done.all()):
             break
     return RepeatResult(trace=_concat_traces(RepeatTrace, traces, n_ticks),
                         final=res.final)

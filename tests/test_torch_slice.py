@@ -252,7 +252,16 @@ def test_build_campaign_runs_on_the_card_by_default():
 def test_port_runs_without_jax():
     code = (
         "import dataclasses, sys\n"
-        "from nclt_slam_tpu_torch import config, interop\n"
+        "from nclt_slam_tpu_torch import config, interop, parallel\n"
+        "from nclt_slam_tpu_torch.cli import live\n"
+        "from nclt_slam_tpu_torch.core import prng\n"
+        "from nclt_slam_tpu_torch.datasets import pairs, transforms\n"
+        "from nclt_slam_tpu_torch.datasets.models import place_recognition "
+        "as pr\n"
+        "from nclt_slam_tpu_torch.eval import average_precision, pr_curve\n"
+        "imaging = [m for m in sys.modules if m.split('.')[0] in "
+        "('PIL', 'matplotlib')]\n"
+        "assert not imaging, imaging\n"
         "from nclt_slam_tpu_torch.baselines import configs as baselines\n"
         "from nclt_slam_tpu_torch.core import lie, quat\n"
         "from nclt_slam_tpu_torch.eval import metrics\n"
@@ -343,6 +352,16 @@ def test_port_runs_without_jax():
         "from nclt_slam_tpu_torch.sensors.depth import sample_depth_at_pixels\n"
         "from nclt_slam_tpu_torch.mapping.occupancy import cell_to_world, "
         "in_bounds\n"
+        "key = prng.PRNGKey(0, 'cpu')\n"
+        "pts = torch.randn(2, 64, 3) * 10\n"
+        "pipe = transforms.build_transforms({'augmentation': "
+        "{'jitter': 0.01}, 'point_cloud': {'max_points': 32}})\n"
+        "pts, mask = transforms.apply_batch(pipe, key, pts, "
+        "torch.ones(2, 64, dtype=torch.bool))\n"
+        "emb = pr.embed(pr.init_params(key), pr.voxelize(pts, mask))\n"
+        "assert emb.shape == (2, 128) and int(mask.sum()) == 64\n"
+        "assert live._depth_png(np.zeros((6, 8)), np.ones((6, 8), bool), "
+        "config.ours())[:4] == b'\\x89PNG'\n"
         "bad = [m for m in sys.modules if m == 'jax' or "
         "m == 'nclt_slam_tpu' or m.startswith(('jax.', 'jaxlib', 'nclt_slam_tpu.'))]\n"
         "assert not bad, bad\n"
