@@ -147,9 +147,12 @@ Phases, each of which must pass (any failure exits non-zero):
     ms a tick, env steps/s, launches per site, the campaign aggregate, the
     recovery entries and goal-blocked ticks;
 11b. render the depth image at full width with ``CameraConfig.
-    ray_terrain_tex`` off and on: terrain hits within the texture's height
-    bound plus the march's quantization, hit or miss agreeing on all but a
-    hundredth of the rays; both times;
+    ray_terrain_tex`` off and on: each textured terrain hit on the
+    analytic terrain within the texture's height bound plus the march's
+    quantization, and no textured ray running deeper than that under the
+    analytic terrain before its hit (the vertical gap between the two hits
+    printed beside them), hit or miss agreeing on all but a hundredth of
+    the rays; both times;
 11c. drive the LiDAR SLAM main path: the SLAM tool's winter session at full
     width (2000 scans x 1024 points) through ``run_slam``; check that K4 was
     launched exactly once, from the fused PGO, every pose is finite, a loop
@@ -194,6 +197,12 @@ Phases, each of which must pass (any failure exits non-zero):
     loss falling over the epoch; Recall@1 (a hit inside 10 m) and AP of
     session-1 queries against session 0; ms a step, s an epoch, transform
     and voxelize ms a batch, embeddings/s;
+11h. run ``tools/torch_calibrate.py``'s split path at 15 routes (a
+    210-tick teach written to its checkpoint, a 50-tick ours repeat paused
+    after each 25-tick chunk and continued in a new call) and hold its
+    table bit-equal to the one-call run's; run the parity checker
+    (``tools/torch_campaign_parity.py``) on the committed card tables and
+    print its report;
 12. profile a short window of the ours repeat and one of the dataset
     benchmark's tick loop, and one full-width ICP, for
     the launches per tick (per ICP iteration), the device's busy share and
@@ -275,6 +284,12 @@ PR_GRAD_RTOL = 1e-4      # of the leaf's largest gradient (3.7e-6 seen)
 # the GT replay's repeat bound, discrete outcomes equal
 MESH_ATOL_M = 5e-2
 MESH_DISCRETE = ("wp_idx", "done", "fired", "plan_fails", "goal_blocked")
+# 11h: the calibration tool's split path (teach past the teach drift's
+# 200-tick settling window; two repeat chunks, so that one pause is taken)
+CALIB_TEACH_TICKS = 210
+CALIB_REPEAT_TICKS = 50
+CALIB_CHUNK = 25
+CALIB_DIR = REPO / "build" / "calibrate_split"
 # the live drive server in-process: an ours drive of one route in chunks
 LIVE_TEACH_TICKS = 300
 LIVE_CHUNK = 25
@@ -442,6 +457,9 @@ STOCK_DISCRETE = ("goal_blocked", "plan_fails", "recovery_phase")
 # the forced stall: RPP's progress checker allows 30 s (300 ticks), so its
 # recovery starts at tick 301
 STALL_TICKS = 320
+# points along a ray between its analytic and its later textured hit at
+# which the texture check looks for a skipped crossing
+TEX_SINK_SAMPLES = 256
 # CameraConfig.ray_terrain_tex: the baked texture is within this of the
 # analytic field (tests/test_scene.py::test_terrain_tex_matches_analytic)
 TEX_HEIGHT_BOUND_M = 0.02
@@ -2250,14 +2268,69 @@ def rgbd_slam_phase(dev):
     return report
 
 
+def tex_bound(cam) -> float:
+    """The texture's height bound plus the march's quantization (half a
+    coarse and half a fine step of the altitude band)."""
+    from nclt_slam_tpu_torch.sensors import depth
+
+    step_c = (depth._TERR_Z_MAX - depth._TERR_Z_MIN) / \
+        max(8, cam.ray_steps // 4)
+    return TEX_HEIGHT_BOUND_M + 0.5 * (step_c + step_c / 8)
+
+
+def tex_hit_measures(origin, dirs, t_off, t_on, near: float):
+    """On the rays that hit the terrain both ways: the vertical gap between
+    the analytic and the textured hit (``|t_on - t_off| * |dir_z|``, which
+    a ray grazing the terrain stretches: its two hits may lie metres apart
+    along it, both on the surface); the textured hit's height above or
+    below the analytic terrain at that hit's (x, y), which the texture's
+    height error and the march's quantization bound on the rays where the
+    texture moved the hit (0 where both marches return the same point: its
+    height there is the analytic march's own quantization, which the
+    texture does not set; a ray already under the terrain at the near clip
+    ``near`` has its hit there, under the surface, not on it, and only a
+    height above the analytic terrain counts); and, where the textured hit
+    lies beyond the analytic one, how far the ray sinks below the analytic
+    terrain between the two (``TEX_SINK_SAMPLES`` points along it).  Until
+    its hit the textured ray is above the textured terrain, so within the
+    same bound of the analytic terrain from below; a march that tunnels
+    through a crest and stops on a later slope returns a point on the
+    surface, but its ray ran under the crest.  Returns (both, gap,
+    height_err, sink), the last three over the ``both`` rays."""
+    import torch
+    from nclt_slam_tpu_torch.scene.terrain import terrain_height
+
+    both = torch.isfinite(t_off) & torch.isfinite(t_on)
+    gap = ((t_on - t_off).abs() * dirs[..., 2].abs())[both]
+    o = origin.reshape(origin.shape[:1] + (1,) * (dirs.dim() - 2) + (3,))
+    hit = (o + torch.where(both, t_on, 0.0)[..., None] * dirs)[both]
+    above = hit[:, 2] - terrain_height(hit[:, 0], hit[:, 1])
+    clipped = t_on[both] <= near
+    height_err = torch.where(clipped, above.clamp_min(0.0), above.abs())
+    height_err = torch.where(t_on[both] != t_off[both], height_err,
+                             torch.zeros_like(height_err))
+    o_b = o.expand(dirs.shape)[both]
+    lo = t_off[both]
+    hi = torch.maximum(t_on[both], lo)
+    frac = torch.linspace(0.0, 1.0, TEX_SINK_SAMPLES, device=dirs.device)
+    ts = lo[:, None] + (hi - lo)[:, None] * frac
+    pts = o_b[:, None] + ts[..., None] * dirs[both][:, None]
+    sink = (terrain_height(pts[..., 0], pts[..., 1]) - pts[..., 2]) \
+        .clamp_min(0.0).amax(1)
+    sink = torch.where(hi > lo, sink, torch.zeros_like(sink))
+    return both, gap, height_err, sink
+
+
 def terrain_tex_phase(shared, carry):
     """``render_depth`` at full width (the routes' poses at the end of the
     ours repeat, 80 x 60 rays) with ``CameraConfig.ray_terrain_tex`` off
-    and on.  On the rays that hit the terrain both ways, the hit points'
-    vertical gap stays within the texture's height bound plus the march's
-    quantization (half a coarse and half a fine step of the altitude band);
-    hit or miss and the depth image's valid mask agree on all but a
-    hundredth of the rays."""
+    and on.  On the rays that hit the terrain both ways, the textured hit
+    lies on the analytic terrain within the texture's height bound plus
+    the march's quantization, and where it lies beyond the analytic hit
+    the ray between the two sinks no deeper than that bound below the
+    analytic terrain (``tex_hit_measures``; the vertical gap between the
+    two hits is printed beside them); hit or miss and the depth image's
+    valid mask agree on all but a hundredth of the rays."""
     import dataclasses as dc
     import torch
     from nclt_slam_tpu_torch.config import DEFAULT
@@ -2281,21 +2354,23 @@ def terrain_tex_phase(shared, carry):
     dirs = depth._rotate(R, depth.ray_grid(cam, pos3.device)[None])
     t_off = depth._terrain_hit(origin, dirs, cams[False])
     t_on = depth._terrain_hit(origin, dirs, cams[True])
-    both = torch.isfinite(t_off) & torch.isfinite(t_on)
+    both, gap, height_err, sink = tex_hit_measures(origin, dirs, t_off,
+                                                   t_on, cam.depth_min)
     hit_agree = (torch.isfinite(t_off) == torch.isfinite(t_on)).float() \
         .mean().item()
-    gap = ((t_on - t_off).abs() * dirs[..., 2].abs())[both]
-    step_c = (depth._TERR_Z_MAX - depth._TERR_Z_MIN) / \
-        max(8, cam.ray_steps // 4)
-    bound = TEX_HEIGHT_BOUND_M + 0.5 * (step_c + step_c / 8)
+    bound = tex_bound(cam)
     (d0, _, v0), (d1, _, v1) = out[False], out[True]
     valid_agree = (v0 == v1).float().mean().item()
     dd = (d1 - d0).abs()[v0 & v1]
     report = dict(
         rays=int(t_off.numel()), terrain_hits=int(both.sum()),
         hit_agree_frac=hit_agree,
+        tex_hit_height_err_max_m=height_err.max().item(),
+        tex_hit_height_err_p99_m=height_err.quantile(0.99).item(),
+        tex_ray_sink_max_m=sink.max().item(),
         vertical_gap_max_m=gap.max().item(),
-        vertical_gap_p99_m=gap.quantile(0.99).item(), bound_m=bound,
+        vertical_gap_p99_m=gap.quantile(0.99).item(),
+        vertical_gap_over_bound=int((gap > bound).sum()), bound_m=bound,
         valid_agree_frac=valid_agree, depth_diff_max_m=dd.max().item(),
         depth_diff_median_m=dd.median().item(),
         render_ms_analytic=ms[False], render_ms_tex=ms[True])
@@ -2305,8 +2380,12 @@ def terrain_tex_phase(shared, carry):
           and valid_agree >= TEX_HIT_AGREE_FRAC,
           f"ray_terrain_tex changes hit or miss on {1 - hit_agree} of the "
           f"rays ({1 - valid_agree} of the depth image)")
-    check(gap.max().item() <= bound, f"ray_terrain_tex moves a terrain hit "
-          f"{gap.max().item()} m vertically (bound {bound} m)")
+    check(height_err.max().item() <= bound, f"ray_terrain_tex puts a "
+          f"terrain hit {height_err.max().item()} m off the analytic "
+          f"terrain (bound {bound} m)")
+    check(sink.max().item() <= bound, f"a ray_terrain_tex ray runs "
+          f"{sink.max().item()} m under the analytic terrain before its hit "
+          f"(bound {bound} m): the march skipped a crossing")
     return report
 
 
@@ -3665,6 +3744,69 @@ def live_phase(dev):
     return stats
 
 
+def calibrate_split_phase(dev):
+    """``tools/torch_calibrate.py`` in pieces at 15 routes: ``main`` writes
+    the teach checkpoint and pauses the ours repeat after its first chunk
+    (``--budget-s 0``), a second ``main`` loads the teach and continues
+    the repeat from its checkpoint; the table (the JAX tool's keys and the
+    executed ticks) is bit-equal to the one-call ``run``'s.  Then the
+    parity checker on the committed card tables, its report printed."""
+    import shutil
+    sys.path.insert(0, str(REPO / "tools"))
+    import torch_calibrate
+    import torch_campaign_parity
+
+    t0 = time.perf_counter()
+    (names, per_route, agg, drift, anchor), _, _ = torch_calibrate.run(
+        None, "ours", CALIB_TEACH_TICKS, CALIB_REPEAT_TICKS, dev,
+        chunk=CALIB_CHUNK)
+    one = json.loads(json.dumps(torch_calibrate.table(
+        names, per_route, agg, drift, anchor, "ours"), default=float))
+    one_s = time.perf_counter() - t0
+    shutil.rmtree(CALIB_DIR, ignore_errors=True)
+    argv = ["--routes", "all", "--mode", "ours",
+            "--ticks", str(CALIB_REPEAT_TICKS),
+            "--teach-ticks", str(CALIB_TEACH_TICKS),
+            "--chunk", str(CALIB_CHUNK), "--device", str(dev),
+            "--teach-ckpt", str(CALIB_DIR / "teach.ckpt"),
+            "--repeat-ckpt", str(CALIB_DIR / "MODE.ckpt"), "--budget-s", "0",
+            "--json", str(CALIB_DIR / "MODE.json")]
+    t0 = time.perf_counter()
+    rcs = []
+    while not rcs or rcs[-1] == torch_calibrate.PAUSED:
+        check(len(rcs) < 4, f"the split repeat did not end: {rcs}")
+        rcs.append(torch_calibrate.main(argv))
+    split_s = time.perf_counter() - t0
+    n_chunks = -(-CALIB_REPEAT_TICKS // CALIB_CHUNK)
+    check(rcs == [torch_calibrate.PAUSED] * (n_chunks - 1) + [0],
+          f"the split run's exit codes were {rcs}")
+    got = json.loads((CALIB_DIR / "ours.json").read_text())
+    check(not (CALIB_DIR / "ours.ckpt").exists(),
+          "the repeat checkpoint outlived its table")
+    for key in one:
+        check(got[key] == one[key], f"the split run's {key!r} differs from "
+              f"the one-call run's")
+    check(got["ticks_executed"] == {"teach": CALIB_TEACH_TICKS,
+                                    "repeat": CALIB_REPEAT_TICKS}
+          and got["repeat_calls"] == n_chunks,
+          f"the split run executed {got['ticks_executed']} in "
+          f"{got['repeat_calls']} calls")
+    check(bool(got["card"]["teach"]), "the table names no card")
+    report = dict(routes=len(names), one_call_s=one_s, split_s=split_s,
+                  exit_codes=rcs, ticks_executed=got["ticks_executed"],
+                  wall_s=got["wall_s"], card=got["card"])
+    print("calibrate_split " + json.dumps(report), flush=True)
+    parity = torch_campaign_parity.check(
+        REPO / "artifacts" / "calibration_torch",
+        REPO / "artifacts" / "calibration")
+    torch_campaign_parity.print_report(parity)
+    report["parity_missed_bands"] = parity["missed_bands"]
+    print("campaign_parity " + json.dumps(
+        {"held": parity["held"], "missed_bands": parity["missed_bands"]}),
+        flush=True)
+    return report
+
+
 def run(seed: int = 0) -> int:
     import torch
 
@@ -3729,6 +3871,7 @@ def run(seed: int = 0) -> int:
     bench_cli = timed(benchmark_cli_phase, dev)
     live = timed(live_phase, dev)
     place_recognition = timed(place_recognition_phase, dev, seed)
+    timed(calibrate_split_phase, dev)
     ours_profile = timed(ours_profile_phase, shared, ours_carry)
     bench_profile = timed(benchmark_profile_phase, dev)
     timed(slam_profile_phase, dev)

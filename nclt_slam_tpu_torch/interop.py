@@ -26,7 +26,7 @@ import torch
 
 @functools.lru_cache(maxsize=1)
 def _registry() -> dict:
-    from nclt_slam_tpu_torch.control import pure_pursuit, supervisor
+    from nclt_slam_tpu_torch.control import pure_pursuit, rpp, supervisor
     from nclt_slam_tpu_torch.datasets import pairs
     from nclt_slam_tpu_torch.datasets.models import place_recognition
     from nclt_slam_tpu_torch.datasets.slam import icp, loop_closure, registration
@@ -39,7 +39,7 @@ def _registry() -> dict:
     from nclt_slam_tpu_torch.vio import ba, drift_monitor, preintegration, tracker
 
     types = [
-        pure_pursuit.CtrlState, supervisor.SupervisorState,
+        pure_pursuit.CtrlState, rpp.RppState, supervisor.SupervisorState,
         diffdrive.RobotState, relay.FusionState, store.LandmarkStore,
         dispatcher.DispatchState, wavefront.PlanResult,
         scene_pack.PackedScene, scene_pack.PackedRoute,

@@ -344,15 +344,16 @@ def _build(spec, leaves, device):
 
 def save_checkpoint(tree, path):
     """Snapshot the port's state (NamedTuples, tuples, lists and dicts of
-    tensors, on any device) for an exact resume: an ``.npz`` of the
-    tensors, each as its numpy dtype, and a JSON structure spec."""
+    tensors, on any device) for an exact resume: a deflated ``.npz`` of
+    the tensors, each as its numpy dtype, and a JSON structure spec (the
+    occupancy grids and landmark stores are mostly zeros)."""
     leaves: list = []
     spec = _spec(tree, leaves)
     arrays = {f"leaf_{i}": a for i, a in enumerate(leaves)}
     meta = json.dumps({"format": CHECKPOINT_FORMAT, "tree": spec})
     Path(path).parent.mkdir(parents=True, exist_ok=True)
     with open(path, "wb") as f:   # a file object: np.savez keeps the name
-        np.savez(f, __spec__=np.array(meta), **arrays)
+        np.savez_compressed(f, __spec__=np.array(meta), **arrays)
     return path
 
 

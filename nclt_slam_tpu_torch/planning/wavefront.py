@@ -33,6 +33,26 @@ def _rows(x):
     return torch.arange(x.shape[0], device=x.device)
 
 
+def _fma32(a, b, c):
+    """``a * b + c`` of float32 tensors rounded once, as the JAX package's
+    compiled descent computes it (XLA contracts the multiply and the add
+    into one fused multiply-add; two float32 roundings break the diagonal
+    against the straight step differently on open ground).  The product is
+    exact in float64, the sum is rounded to odd there (TwoSum's error
+    nudges an inexact even result one ulp toward it), and rounding that to
+    float32 is then the correctly rounded fused result."""
+    a, b, c = a.double(), b.double(), c.double()
+    p = a * b
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.full_like(s, float("inf")),
+                         torch.full_like(s, -float("inf")))
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
 def plan_window(cost, start_rc, goal_rc, map_cfg: MapConfig,
                 cfg: PlannerConfig, border_phi=None) -> PlanResult:
     """Plan inside (B, W, W) cost crops.
@@ -63,7 +83,8 @@ def plan_window(cost, start_rc, goal_rc, map_cfg: MapConfig,
     ok = phi[rows, sr, sc] < BIG
 
     # descent extraction from the start cell: the optimal next cell
-    # minimises phi[n] + scale(n) * tc[x] (the Bellman equation's argmin)
+    # minimises phi[n] + scale(n) * tc[x] (the Bellman equation's argmin),
+    # fused as the JAX package's compiled step fuses it
     offs = torch.tensor(_OFFS, dtype=torch.int64, device=cost.device)
     step_scale = torch.tensor([DIAG if (dr and dc) else 1.0
                                for dr, dc in _OFFS],
@@ -73,7 +94,8 @@ def plan_window(cost, start_rc, goal_rc, map_cfg: MapConfig,
     for _ in range(cfg.path_len):
         nr = (r[:, None] + offs[:, 0]).clamp(0, W - 1)
         nc = (c[:, None] + offs[:, 1]).clamp(0, W - 1)
-        vals = phi[rows[:, None], nr, nc] + step_scale * tc[rows, r, c][:, None]
+        vals = _fma32(step_scale, tc[rows, r, c][:, None],
+                      phi[rows[:, None], nr, nc])
         k = vals.argmin(1)
         r2 = nr[rows, k]
         c2 = nc[rows, k]

@@ -184,14 +184,17 @@ def apply_stock_projection(teach_grids, wps, n_wps, cfg: Config):
 def run_campaign_repeat(data: CampaignData, teach_grids, wps, n_wps,
                         cfg: Config, n_ticks: int, stores=None,
                         chunk: int = 250, progress=None, carry=None,
-                        tick0: int = 0,
-                        stop_when_done: bool = True) -> RepeatResult:
+                        tick0: int = 0, stop_when_done: bool = True,
+                        pause=None) -> RepeatResult:
     """Batched repeat, chunked like run_campaign_teach.  ``carry``/``tick0``
     continue a previous run's final state; ``stop_when_done=False`` runs
-    exactly ``planned_chunks`` worth of ticks (benchmarking).  The stock
-    baseline's one-time WP projection runs here, so that every entry point
-    projects (stock mode has no per-WP timeout: a lethal WP would block a
-    route for good); it is idempotent."""
+    exactly ``planned_chunks`` worth of ticks (benchmarking).
+    ``pause(tick)``, asked after each chunk that leaves a route running,
+    stops the run at that chunk boundary when it returns True: the result
+    then holds the ticks run so far and the carry that continues them.
+    The stock baseline's one-time WP projection runs here, so that every
+    entry point projects (stock mode has no per-WP timeout: a lethal WP
+    would block a route for good); it is idempotent."""
     n_chunks, chunk = planned_chunks(n_ticks, chunk)
     wps, n_wps = apply_stock_projection(teach_grids, wps, n_wps, cfg)
     if carry is None:
@@ -206,8 +209,10 @@ def run_campaign_repeat(data: CampaignData, teach_grids, wps, n_wps,
         traces.append(res.trace)
         done = res.trace.done[:, -1]
         if progress:
-            progress(t0 + chunk, n_ticks, int(done.sum()))
+            progress(t0 + chunk, tick0 + n_ticks, int(done.sum()))
         if stop_when_done and bool(done.all()):
+            break
+        if pause is not None and pause(t0 + chunk):
             break
     return RepeatResult(trace=_concat_traces(RepeatTrace, traces, n_ticks),
                         final=res.final)

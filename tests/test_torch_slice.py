@@ -319,6 +319,7 @@ def test_port_runs_without_jax():
         "sys.path.insert(0, 'tools')\n"
         "import torch_slam_scale_test as slam_tool\n"
         "import torch_calibrate\n"
+        "import torch_campaign_parity\n"
         "import torch_profile_stages\n"
         "from nclt_slam_tpu_torch import analysis, io, utils\n"
         "from nclt_slam_tpu_torch.analysis import campaign_figures, plots\n"

@@ -438,6 +438,23 @@ def slice_configs():
     return jt, tt, modes
 
 
+def test_jax_stock_carry_converts_into_the_port():
+    """A JAX stock repeat carry, whose follower state is RegulatedPure-
+    Pursuit's ``RppState``, converts into the port (as
+    ``tools/torch_divergence_probe.py`` hands the port JAX's carry) and
+    back unchanged."""
+    _, _, modes = slice_configs()
+    jr_cfg = modes["stock"][0]
+    packed, wps, n_wps = pack_test_route(straight_route(), small_config())
+    carry = init_repeat_carry(packed, wps, n_wps, jr_cfg)
+    got = batch1(carry)
+    assert type(got.ctrl) is trpp.RppState
+    back = interop.to_numpy_tree(got)
+    for a, b in zip(jax.tree_util.tree_leaves(back),
+                    jax.tree_util.tree_leaves(carry)):
+        assert np.array_equal(a[0], np.asarray(b))
+
+
 def _stack2(a, b):
     return jax.tree_util.tree_map(lambda x, y: np.stack(
         [np.asarray(x), np.asarray(y)]), a, b)

@@ -256,3 +256,69 @@ def test_plan_world_and_coarse_potential_match_jax():
                               tres.potential.numpy())
         assert np.array_equal(np.asarray(jres.path_xy), tres.path_xy.numpy())
         assert tres.ok.all() and (tres.n_path > 5).all()
+
+
+def test_descent_on_open_ground_matches_jax():
+    """On a window of free cells the potential is the same in both packages,
+    and at many cells a diagonal step and a straight one tie to within one
+    float32 rounding; the JAX package's compiled descent fuses
+    ``phi + scale * tc`` into one rounding, and the port's must break
+    those ties as it does (with two roundings 138 of these 576 starts took
+    another path)."""
+    W = 24
+    jpc, tpc = _cfgs(W)
+    mc = JDEFAULT.map
+    starts = np.stack(np.meshgrid(np.arange(W), np.arange(W), indexing="ij"),
+                      -1).reshape(-1, 2).astype(np.int32)
+    B = len(starts)
+    cost = np.zeros((B, W, W), np.float32)
+    goal = np.tile(np.array([5, 12], np.int32), (B, 1))
+    jres = jax.vmap(lambda c, s, g: jwf.plan_window(
+        c, (s[0], s[1]), (g[0], g[1]), mc, jpc))(
+        jnp.asarray(cost), jnp.asarray(starts), jnp.asarray(goal))
+    tres = twf.plan_window(torch.from_numpy(cost),
+                           tuple(torch.from_numpy(starts).unbind(1)),
+                           tuple(torch.from_numpy(goal).unbind(1)),
+                           DEFAULT.map, tpc)
+    assert np.array_equal(np.asarray(jres.potential), tres.potential.numpy())
+    assert np.array_equal(np.asarray(jres.n_path), tres.n_path.numpy())
+    same = (np.asarray(jres.path_xy) == tres.path_xy.numpy()).all((1, 2))
+    assert same.all(), f"{(~same).sum()} of {B} paths differ"
+
+
+def _round32(q):
+    """The float32 nearest the rational ``q`` (ties to even)."""
+    from fractions import Fraction
+
+    x = np.float32(float(q))
+    cands = [np.nextafter(x, np.float32(-np.inf)), x,
+             np.nextafter(x, np.float32(np.inf))]
+    err = [abs(Fraction(float(v)) - q) for v in cands]
+    best = min(err)
+    near = [v for v, e in zip(cands, err) if e == best]
+    return min(near, key=lambda v: int(np.array(v).view(np.int32)) & 1)
+
+
+def test_fma32_rounds_once_as_jax_does():
+    """``_fma32`` is the correctly rounded ``a * b + c`` (checked against
+    exact rational arithmetic) and equals the JAX package's compiled
+    ``a * b + c`` on the CPU, the probe's open-ground tie among the
+    cases."""
+    from fractions import Fraction
+
+    rng = np.random.RandomState(3)
+    n = 4000
+    a = rng.uniform(0.0, 2.0, n).astype(np.float32)
+    b = (rng.uniform(0.0, 1.0, n) * 10.0 ** rng.randint(-3, 2, n)) \
+        .astype(np.float32)
+    c = (rng.uniform(-1.0, 1.0, n) * 10.0 ** rng.randint(-2, 10, n)) \
+        .astype(np.float32)
+    a[:3], b[:3], c[:3] = 1.4142135, 0.1, [0.3, 0.34142136, 1e9]
+    got = twf._fma32(*(torch.from_numpy(x) for x in (a, b, c))).numpy()
+    want = np.array([_round32(Fraction(float(x)) * Fraction(float(y))
+                              + Fraction(float(z)))
+                     for x, y, z in zip(a, b, c)], np.float32)
+    assert np.array_equal(got, want)
+    assert got[0] == np.float32(0.44142136)        # not 0.4414214
+    jit = np.asarray(jax.jit(lambda x, y, z: x * y + z)(a, b, c))
+    assert np.array_equal(got, jit)

@@ -23,7 +23,9 @@ over ``[200, n)``, the drift monitor's settling window skipped), the repeat
 metrics, and the anchor outcomes counted over live attempts only (a route
 that is done parks at spawn while the batch keeps ticking), and writes the
 JSON keys of the JAX tool (``mode``, ``per_route``, ``agg``,
-``teach_drift``, ``anchor``).  On the card (the default):
+``teach_drift``, ``anchor``) and, beside them, the executed teach and
+repeat ticks, the wall seconds of each phase and the card's ``nvidia-smi
+--query-gpu=name,power.limit`` line.  On the card (the default):
 
     python3 tools/torch_calibrate.py --routes all --mode all \\
         --ticks 600 --teach-ticks 600 --json runs/calib_MODE.json
@@ -31,6 +33,30 @@ JSON keys of the JAX tool (``mode``, ``per_route``, ``agg``,
 ``--mode all`` asks for a ``--json`` path holding ``MODE`` (each mode gets
 its own file; a path without it is refused rather than overwritten mode
 after mode).  ``--device cpu`` runs on the CPU.
+
+A full-length campaign (12,000 + 12,000 ticks) outlasts one bounded run,
+so it runs in pieces:
+
+- ``--teach-ckpt PATH``: a missing file is written after the teach (its
+  map, landmark stores, trace, waypoints and timings); a present one is
+  loaded and no teach runs.  ``--mode teach`` stops there.  The campaign
+  data is rebuilt from the seed either way.
+- ``--repeat-ckpt PATH`` (``MODE`` replaced) with ``--budget-s S``: at a
+  chunk boundary past which the next chunk would not fit in ``S`` seconds
+  of the process, the repeat's carry and its trace so far are written
+  there and the tool exits with code 75; the next run with the same flags
+  continues it at that tick, and the file is removed once the mode's
+  table is written.  Every run advances at least one chunk.
+
+    python3 tools/torch_calibrate.py --routes all --mode teach \\
+        --teach-ckpt runs/teach.ckpt
+    python3 tools/torch_calibrate.py --routes all --mode ours \\
+        --teach-ckpt runs/teach.ckpt --repeat-ckpt runs/MODE.ckpt \\
+        --budget-s 3300 --json artifacts/calibration_torch/MODE.json
+
+The pieces give the one-call run's table bit for bit: the repeat is the
+same chain of ``run_campaign_repeat`` chunks, continued through its
+``carry`` / ``tick0``.
 """
 
 from __future__ import annotations
@@ -38,7 +64,9 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -46,6 +74,9 @@ import numpy as np
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 MODES = ("ours", "stock", "rgbd", "rgbd_ba", "encoder")
+
+# exit code of a run that paused its repeat (checkpointed, to be continued)
+PAUSED = 75
 
 # Reference teach drift mean/max [m] (routes/README.md:24-40; 03 unrecorded)
 REF_TEACH_DRIFT = {
@@ -166,43 +197,226 @@ def anchor_outcomes(names, trace) -> dict:
 
 
 def run(route_names, mode: str, teach_ticks: int, repeat_ticks: int,
-        device="cuda", shared=None):
-    """One mode's campaign.  ``shared``: optional (data, teach, wps, n_wps)
-    of a previous mode — the baselines consume the ours-stack teach
-    artefacts.  Returns ((names, per_route, agg, teach_drift, anchor),
+        device="cuda", shared=None, chunk: int = 250):
+    """One mode's campaign in one call: the teach (unless ``shared``, the
+    (data, teach, wps, n_wps) of a previous mode — the baselines consume
+    the ours-stack teach artefacts) and ``repeat_phase`` without a
+    checkpoint.  Returns ((names, per_route, agg, teach_drift, anchor),
     shared, the repeat result)."""
+    from nclt_slam_tpu_torch.rollout.campaign import campaign_metrics
+
+    if shared is None:
+        shared = run_teach(route_names, teach_ticks, device, chunk)
+    data, teach, wps, n_wps = shared
+    rep, _ = repeat_phase(shared, mode, repeat_ticks, chunk, None, None,
+                          0.0, None)
+    per_route, agg = campaign_metrics(data, rep, wps, n_wps,
+                                      mode_config(mode))
+    return ((data.names, per_route, agg, teach_drift(data.names, teach.trace),
+             anchor_outcomes(data.names, rep.trace)), shared, rep)
+
+
+def progress(tag):
+    def f(done_ticks, total, n_done):
+        print(f"[calibrate] {tag} {done_ticks}/{total} ticks, "
+              f"{n_done} routes done", flush=True)
+    return f
+
+
+def build(route_names, device):
+    """The campaign data, rebuilt from the seed (``config.ours()``: the teach
+    always runs the full VI stack)."""
+    from nclt_slam_tpu_torch import config
+    from nclt_slam_tpu_torch.rollout.campaign import build_campaign
+
+    data = build_campaign(route_names, cfg=config.ours(), device=device)
+    print("[calibrate] campaign built", flush=True)
+    return data
+
+
+def run_teach(route_names, teach_ticks: int, device, chunk: int = 250,
+              data=None):
+    """The shared teach: (data, teach, wps, n_wps)."""
     from nclt_slam_tpu_torch import config
     from nclt_slam_tpu_torch.rollout.campaign import (
-        build_campaign,
-        campaign_metrics,
-        run_campaign_repeat,
         run_campaign_teach,
         teach_waypoints,
     )
 
-    cfg = mode_config(mode)
+    teach_cfg = config.ours()
+    if data is None:
+        data = build(route_names, device)
+    teach = run_campaign_teach(data, teach_cfg, n_ticks=teach_ticks,
+                               chunk=chunk, progress=progress("teach"))
+    wps, n_wps = teach_waypoints(data, teach, teach_cfg)
+    return data, teach, wps, n_wps
 
-    def prog(tag):
-        def f(done_ticks, total, n_done):
-            print(f"[calibrate] {tag} {done_ticks}/{total} ticks, "
-                  f"{n_done} routes done", flush=True)
-        return f
 
-    if shared is None:
-        teach_cfg = config.ours()   # teach always runs the full VI stack
-        data = build_campaign(route_names, cfg=teach_cfg, device=device)
-        print("[calibrate] campaign built", flush=True)
-        teach = run_campaign_teach(data, teach_cfg, n_ticks=teach_ticks,
-                                   progress=prog("teach"))
-        wps, n_wps = teach_waypoints(data, teach, teach_cfg)
-        shared = (data, teach, wps, n_wps)
+def card_line(device) -> str | None:
+    """``nvidia-smi --query-gpu=name,power.limit`` of the card a CUDA run
+    uses (None on the CPU or where nvidia-smi does not answer)."""
+    import torch
+
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return None
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60)
+    except (OSError, subprocess.SubprocessError):
+        return None
+    lines = out.stdout.strip().splitlines()
+    if out.returncode != 0 or not lines:
+        return None
+    return lines[min(dev.index or 0, len(lines) - 1)].strip()
+
+
+def save_teach(path, shared, meta: dict):
+    """The teach checkpoint: map, landmark stores, teach trace, waypoints
+    and ``meta`` (routes, ticks, timings, card)."""
+    import torch
+
+    from nclt_slam_tpu_torch.io.artifacts import save_checkpoint
+    from nclt_slam_tpu_torch.rollout.teach import TeachTrace
+
+    _, teach, wps, n_wps = shared
+    trace = TeachTrace(*(torch.from_numpy(np.asarray(x))
+                         for x in teach.trace))
+    save_checkpoint({"grid": teach.teach_grid, "store": teach.store,
+                     "trace": trace, "n_ticks": teach.n_ticks, "wps": wps,
+                     "n_wps": n_wps, "meta": meta}, path)
+
+
+def load_teach(path, data, device):
+    """A teach checkpoint -> ((data, teach, wps, n_wps), meta); the teach
+    has no final carry (a repeat starts from the waypoints)."""
+    from nclt_slam_tpu_torch.io.artifacts import load_checkpoint
+    from nclt_slam_tpu_torch.rollout.teach import TeachResult, TeachTrace
+
+    blob = load_checkpoint(path, device)
+    trace = TeachTrace(*(x.cpu().numpy() for x in blob["trace"]))
+    teach = TeachResult(trace=trace, teach_grid=blob["grid"],
+                        store=blob["store"],
+                        n_ticks=blob["n_ticks"].cpu(), final=None)
+    return (data, teach, blob["wps"], blob["n_wps"]), blob["meta"]
+
+
+def teach_phase(route_names, teach_ticks: int, device, ckpt, chunk: int,
+                card):
+    """Load the teach from ``ckpt`` or run it (and write ``ckpt`` when a
+    path is given).  Returns (shared, meta)."""
+    import torch
+
+    t0 = time.perf_counter()
+    data = build(route_names, device)
+    build_s = time.perf_counter() - t0
+    if ckpt is not None and Path(ckpt).is_file():
+        t0 = time.perf_counter()
+        shared, meta = load_teach(ckpt, data, device)
+        want = {"routes": list(data.names), "teach_ticks": teach_ticks,
+                "chunk": chunk}
+        got = {k: meta[k] for k in want}
+        if got != want:
+            raise SystemExit(f"{ckpt} holds a teach of {got}, not {want}")
+        print(f"[calibrate] teach loaded <- {ckpt} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+        return shared, meta
+    t0 = time.perf_counter()
+    shared = run_teach(None, teach_ticks, device, chunk, data=data)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    teach_s = time.perf_counter() - t0
+    meta = {"routes": list(data.names), "teach_ticks": teach_ticks,
+            "chunk": chunk,
+            "teach_ticks_executed": int(shared[1].trace.done.shape[1]),
+            "build_s": build_s, "teach_s": teach_s, "card": card}
+    if ckpt is not None:
+        t0 = time.perf_counter()
+        save_teach(ckpt, shared, meta)
+        print(f"[calibrate] teach checkpoint -> {ckpt} "
+              f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    return shared, meta
+
+
+def repeat_phase(shared, mode: str, repeat_ticks: int, chunk: int, ckpt,
+                 budget_s, t_process: float, card):
+    """The mode's repeat: one ``run_campaign_repeat`` call, continued from
+    ``ckpt`` if it holds one, paused at the chunk boundary past which the
+    next chunk would not fit in ``budget_s`` seconds of the process (None:
+    never).  Returns (RepeatResult, meta), or None when it paused (the
+    carry and the trace so far are then in ``ckpt``)."""
+    import torch
+
+    from nclt_slam_tpu_torch.io.artifacts import (
+        load_checkpoint,
+        save_checkpoint,
+    )
+    from nclt_slam_tpu_torch.rollout.campaign import (
+        planned_chunks,
+        run_campaign_repeat,
+    )
+    from nclt_slam_tpu_torch.rollout.repeat import RepeatResult, RepeatTrace
+
     data, teach, wps, n_wps = shared
-    rep = run_campaign_repeat(data, teach.teach_grid, wps, n_wps, cfg,
-                              n_ticks=repeat_ticks, stores=teach.store,
-                              progress=prog(f"repeat[{mode}]"))
-    per_route, agg = campaign_metrics(data, rep, wps, n_wps, cfg)
-    return ((data.names, per_route, agg, teach_drift(data.names, teach.trace),
-             anchor_outcomes(data.names, rep.trace)), shared, rep)
+    dev = wps.device
+    n_chunks, chunk = planned_chunks(repeat_ticks, chunk)
+    carry, before, tick = None, [], 0
+    meta = {"mode": mode, "routes": list(data.names),
+            "repeat_ticks": repeat_ticks, "chunk": chunk, "repeat_s": 0.0,
+            "calls": 0, "cards": []}
+    if ckpt is not None and Path(ckpt).is_file():
+        blob = load_checkpoint(ckpt, dev)
+        old = blob["meta"]
+        want = {k: meta[k] for k in ("mode", "routes", "repeat_ticks",
+                                     "chunk")}
+        if {k: old[k] for k in want} != want:
+            raise SystemExit(f"{ckpt} holds a repeat of "
+                             f"{ {k: old[k] for k in want} }, not {want}")
+        meta = old
+        carry, tick = blob["carry"], old["tick"]
+        before = [RepeatTrace(*(x.cpu().numpy() for x in blob["trace"]))]
+        print(f"[calibrate] repeat[{mode}] continues at tick {tick} "
+              f"<- {ckpt}", flush=True)
+    meta["calls"] += 1
+    if card not in meta["cards"]:
+        meta["cards"].append(card)
+    sync = (torch.cuda.synchronize if dev.type == "cuda" else lambda: None)
+    t_call = time.perf_counter()
+    last = [t_call]
+    paused = []
+
+    def pause(next_tick):
+        now = time.perf_counter()
+        piece_s, last[0] = now - last[0], now
+        if budget_s is not None and now - t_process + 1.5 * piece_s > \
+                budget_s and next_tick < repeat_ticks:
+            paused.append(next_tick)
+        return bool(paused)
+
+    # a whole number of chunks from ``tick``: the one-call run's schedule
+    res = run_campaign_repeat(data, teach.teach_grid, wps, n_wps,
+                              mode_config(mode),
+                              n_ticks=n_chunks * chunk - tick,
+                              stores=teach.store, chunk=chunk,
+                              progress=progress(f"repeat[{mode}]"),
+                              carry=carry, tick0=tick, pause=pause)
+    sync()
+    meta["repeat_s"] += time.perf_counter() - t_call
+    meta["tick"] = tick + res.trace.done.shape[1]
+    parts = before + [res.trace]
+    if paused:
+        save_checkpoint({"carry": res.final, "meta": meta,
+                         "trace": RepeatTrace(*(
+                             torch.from_numpy(np.concatenate(xs, 1))
+                             for xs in zip(*parts)))}, ckpt)
+        print(f"[calibrate] repeat[{mode}] paused at tick {meta['tick']} "
+              f"-> {ckpt}", flush=True)
+        return None
+    trace = RepeatTrace(*(np.concatenate(xs, 1)[:, :repeat_ticks]
+                          for xs in zip(*parts)))
+    return RepeatResult(trace=trace, final=res.final), meta
 
 
 def report(names, per_route, agg, teach_drift, anchor, mode):
@@ -248,49 +462,99 @@ def report(names, per_route, agg, teach_drift, anchor, mode):
           f"(ref ours: 15/15, 8/15, 70%, 5.2 m)")
 
 
-def json_path(template: str | None, mode: str, modes) -> Path | None:
-    """The JSON file of ``mode``: ``MODE`` in the template is replaced by
-    the mode's name.  With more than one mode the template must hold
-    ``MODE``, or each mode would overwrite the last one's file."""
+def table(names, per_route, agg, drift, anchor, mode) -> dict:
+    """The JAX tool's JSON keys."""
+    return {"mode": mode, "per_route": per_route, "agg": agg,
+            "teach_drift": drift, "anchor": anchor}
+
+
+def json_path(template: str | None, mode: str, modes,
+              flag: str = "--json") -> Path | None:
+    """The file of ``mode``: ``MODE`` in the template is replaced by the
+    mode's name.  With more than one mode the template must hold ``MODE``,
+    or each mode would overwrite the last one's file."""
     if template is None:
         return None
     if len(modes) > 1 and "MODE" not in template:
-        raise SystemExit(f"--json {template!r} has no MODE for --mode all: "
+        raise SystemExit(f"{flag} {template!r} has no MODE for --mode all: "
                          f"every mode would overwrite one file")
     return Path(template.replace("MODE", mode))
 
 
 def main(argv=None):
+    t_process = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--routes", default="08_nw_sw,01_road,02_north_forest",
                     help="comma-separated route names, or 'all'")
-    ap.add_argument("--mode", default="ours", choices=MODES + ("all",))
+    ap.add_argument("--mode", default="ours",
+                    choices=MODES + ("all", "teach"),
+                    help="'teach' runs (or loads) the teach alone")
     ap.add_argument("--ticks", type=int, default=12000)
     ap.add_argument("--teach-ticks", type=int, default=12000)
+    ap.add_argument("--chunk", type=int, default=250,
+                    help="ticks between the runners' host waits")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--json", default=None,
                     help="output path; MODE is replaced by the mode")
+    ap.add_argument("--teach-ckpt", default=None,
+                    help="teach checkpoint: loaded if present, else written")
+    ap.add_argument("--repeat-ckpt", default=None,
+                    help="repeat checkpoint (MODE is replaced by the mode)")
+    ap.add_argument("--budget-s", type=float, default=None,
+                    help="pause the repeat into --repeat-ckpt before the "
+                         "process has run this long")
     args = ap.parse_args(argv)
 
+    from nclt_slam_tpu_torch.rollout.campaign import campaign_metrics
     from nclt_slam_tpu_torch.scene.routes import ALL_ROUTES
 
     routes = (list(ALL_ROUTES) if args.routes == "all"
               else args.routes.split(","))
-    modes = list(MODES) if args.mode == "all" else [args.mode]
+    modes = ([] if args.mode == "teach" else
+             list(MODES) if args.mode == "all" else [args.mode])
     paths = {m: json_path(args.json, m, modes) for m in modes}
-    shared = None
+    ckpts = {m: json_path(args.repeat_ckpt, m, modes, "--repeat-ckpt")
+             for m in modes}
+    if args.budget_s is not None and args.repeat_ckpt is None:
+        ap.error("--budget-s needs --repeat-ckpt")
+    card = card_line(args.device)
+    shared, teach_meta = teach_phase(routes, args.teach_ticks, args.device,
+                                     args.teach_ckpt, args.chunk, card)
+    data, teach, wps, n_wps = shared
+    drift = teach_drift(data.names, teach.trace)
     for mode in modes:
-        (names, per_route, agg, drift, anchor), shared, _ = run(
-            routes, mode, args.teach_ticks, args.ticks, args.device,
-            shared=shared)
-        report(names, per_route, agg, drift, anchor, mode)
+        out = repeat_phase(shared, mode, args.ticks, args.chunk, ckpts[mode],
+                           args.budget_s, t_process, card)
+        if out is None:
+            return PAUSED
+        rep, meta = out
+        t0 = time.perf_counter()
+        per_route, agg = campaign_metrics(data, rep, wps, n_wps,
+                                          mode_config(mode))
+        anchor = anchor_outcomes(data.names, rep.trace)
+        metrics_s = time.perf_counter() - t0
+        report(data.names, per_route, agg, drift, anchor, mode)
         if paths[mode] is not None:
-            out = {"mode": mode, "per_route": per_route, "agg": agg,
-                   "teach_drift": drift, "anchor": anchor}
+            executed = {"teach": teach_meta["teach_ticks_executed"],
+                        "repeat": meta["tick"]}
+            wall = {"build": teach_meta["build_s"],
+                    "teach": teach_meta["teach_s"],
+                    "repeat": meta["repeat_s"], "metrics": metrics_s}
+            out = table(data.names, per_route, agg, drift, anchor, mode)
+            out.update(
+                ticks_executed=executed, wall_s=wall,
+                ms_per_tick={k: wall[k] / executed[k] * 1e3
+                             for k in executed},
+                repeat_calls=meta["calls"],
+                card={"teach": teach_meta["card"],
+                      "repeat": meta["cards"]})
             paths[mode].parent.mkdir(parents=True, exist_ok=True)
             paths[mode].write_text(json.dumps(out, indent=1, default=float))
             print(f"wrote {paths[mode]}")
+        if ckpts[mode] is not None and ckpts[mode].is_file():
+            ckpts[mode].unlink()
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())
