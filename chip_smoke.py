@@ -203,6 +203,18 @@ Phases, each of which must pass (any failure exits non-zero):
     table bit-equal to the one-call run's; run the parity checker
     (``tools/torch_campaign_parity.py``) on the committed card tables and
     print its report;
+11i. drive the repeat's seed axis (``tools/torch_calibrate.py --seeds``)
+    with the launch counts set to 0 just before it: the stock repeat at 15
+    routes x seeds (1, 2) as 30 batch rows for 100 ticks off 11a's shared
+    teach; seed 1's rows bit-equal, in every trace field, to 11a's
+    untiled stock run, seed 2's differing in at least one field; print ms
+    a tick, peak device memory and each seed's aggregate; then K1 at the
+    seed batch's VIO (120,256)x(120,384) and matcher (600,256)x(120,256)
+    shapes and K2 at (120,192,192) and (120,119,232) x 384 (the 120 rows
+    of the 8-seed runs, in several waves), every launch bit-equal to the
+    plain version (stock runs no anchor matcher, whose batched 4 x 4
+    products round otherwise at 60 rows than at 15 or 30:
+    ``tools/torch_batch_probe.py``);
 12. profile a short window of the ours repeat and one of the dataset
     benchmark's tick loop, and one full-width ICP, for
     the launches per tick (per ICP iteration), the device's busy share and
@@ -457,6 +469,10 @@ STOCK_DISCRETE = ("goal_blocked", "plan_fails", "recovery_phase")
 # the forced stall: RPP's progress checker allows 30 s (300 ticks), so its
 # recovery starts at tick 301
 STALL_TICKS = 320
+# the seed axis (11i): seeds of the witness run; the 8-seed runs' batch
+SEED_AXIS_SEEDS = (1, 2)
+SEED_BATCH_K1_SHAPES = ((120, 256, 120, 384), (600, 256, 120, 256))
+SEED_BATCH_K2_SHAPES = ((120, 192, 192), (120, 119, 232))
 # points along a ray between its analytic and its later textured hit at
 # which the texture check looks for a skipped crossing
 TEX_SINK_SAMPLES = 256
@@ -589,6 +605,21 @@ def build_phase():
           + ", ".join(str(lib.relative_to(REPO)) for lib in libs), flush=True)
 
 
+def wavefront_inputs(shape, dev, g):
+    """K2's check inputs at (B, H, W) from the generator ``g``: costs in
+    [0.1, 2.1) with ~15 % lethal cells, one goal cell a grid."""
+    import torch
+    from nclt_slam_tpu_torch.ops import wavefront as wf
+    B, H, W = shape
+    tc = torch.rand(B, H, W, generator=g) * 2.0 + 0.1
+    tc[torch.rand(B, H, W, generator=g) < 0.15] = wf.BIG
+    phi0 = torch.full((B, H, W), wf.BIG)
+    gr = torch.randint(0, H, (B,), generator=g)
+    gc = torch.randint(0, W, (B,), generator=g)
+    phi0[torch.arange(B), gr, gc] = 0.0
+    return tc.to(dev), phi0.to(dev)
+
+
 def kernel_phase(dev):
     """K2 against its plain version at the main path's shapes."""
     import torch
@@ -597,13 +628,7 @@ def kernel_phase(dev):
     g = torch.Generator().manual_seed(0)
     rows = []
     for B, H, W in KERNEL_SHAPES:
-        tc = torch.rand(B, H, W, generator=g) * 2.0 + 0.1
-        tc[torch.rand(B, H, W, generator=g) < 0.15] = wf.BIG
-        phi0 = torch.full((B, H, W), wf.BIG)
-        gr = torch.randint(0, H, (B,), generator=g)
-        gc = torch.randint(0, W, (B,), generator=g)
-        phi0[torch.arange(B), gr, gc] = 0.0
-        tc, phi0 = tc.to(dev), phi0.to(dev)
+        tc, phi0 = wavefront_inputs((B, H, W), dev, g)
         ref = wf.wavefront_relax_plain(tc, phi0, KERNEL_ITERS)
         outs = [wf.wavefront_relax(tc, phi0, KERNEL_ITERS)
                 for _ in range(K2_CHECK_LAUNCHES)]
@@ -2454,7 +2479,8 @@ def baseline_main_path_phase(shared, dev):
     path's teach, waypoints and landmark stores, through the calibration
     front end (``tools/torch_calibrate.run``): K2 launched in both, K1
     (site ``vio``) in stock only; traces finite and robots moving; every
-    stock relay committed; the encoder's nav pose pure dead reckoning."""
+    stock relay committed; the encoder's nav pose pure dead reckoning.
+    Returns (rows, traces), each by mode."""
     import numpy as np
     import torch
     sys.path.insert(0, str(REPO / "tools"))
@@ -2462,7 +2488,7 @@ def baseline_main_path_phase(shared, dev):
     from nclt_slam_tpu_torch.fusion.relay import REGIME_ENCODER
 
     n_routes = len(shared[0].names)
-    stats = {}
+    stats, traces = {}, {}
     for mode in ("stock", "encoder"):
         torch.cuda.synchronize()
         reset_counts()
@@ -2525,7 +2551,8 @@ def baseline_main_path_phase(shared, dev):
         print(f"{mode}_campaign_metrics " + json.dumps(agg), flush=True)
         print(f"{mode}_main_path " + json.dumps(row), flush=True)
         stats[mode] = row
-    return stats
+        traces[mode] = r
+    return stats, traces
 
 
 def traces_finite(named):
@@ -3807,6 +3834,107 @@ def calibrate_split_phase(dev):
     return report
 
 
+def seed_axis_phase(shared, stock_trace, dev):
+    """The repeat's seed axis as batch rows (``tools/torch_calibrate.py
+    --seeds``): the stock repeat at 15 routes x ``SEED_AXIS_SEEDS`` off the
+    shared teach for ``BASELINE_REPEAT_TICKS``.  Seed 1's rows bit-equal,
+    in every trace field, to ``stock_trace`` (11a's untiled run), seed 2's
+    differing in at least one field; ms a tick, peak device memory, each
+    seed's aggregate.  Then K1 and K2 at the 8-seed batch's shapes, every
+    launch bit-equal to the plain version (the kernels run there in more
+    waves than at any other checked shape)."""
+    import torch
+    sys.path.insert(0, str(REPO / "tools"))
+    import torch_calibrate
+    from nclt_slam_tpu_torch.ops import hamming as hm
+    from nclt_slam_tpu_torch.ops import wavefront as wf
+
+    seeds = SEED_AXIS_SEEDS
+    n_routes = len(shared[0].names)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    rep, meta = torch_calibrate.repeat_phase(
+        shared, "stock", BASELINE_REPEAT_TICKS, 250, None, None, 0.0, None,
+        seeds=seeds)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    sites = counts["k1_sites"]
+    check(counts["k2"] > 0 and sites.get("vio", 0) > 0
+          and counts["k1"] == sites["vio"],
+          f"the seed batch did not launch K2 and K1 (vio only): {counts}")
+    r = rep.trace
+    rows = {s: slice(i * n_routes, (i + 1) * n_routes)
+            for i, s in enumerate(seeds)}
+    for f in r._fields:
+        check(same_bits(getattr(r, f)[rows[1]], getattr(stock_trace, f)),
+              f"seed axis: seed 1's {f} differs from 11a's untiled stock "
+              f"run")
+    differing = [f for f in r._fields
+                 if not same_bits(getattr(r, f)[rows[2]],
+                                  getattr(r, f)[rows[1]])]
+    check(differing, "seed axis: seed 2's rows equal seed 1's in every "
+          "trace field")
+    traces_finite((("seed batch gt_xy", r.gt_xy),
+                   ("seed batch nav_xy", r.nav_xy)))
+    tables = torch_calibrate.seed_tables(
+        shared, rep, "stock", seeds, BASELINE_REPEAT_TICKS, meta["chunk"],
+        torch_calibrate.teach_drift(shared[0].names, shared[1].trace))
+    ex = r.done.shape[1]
+    substeps = torch_calibrate.mode_config("stock").sim.nav_decimation
+    report = dict(
+        rows=len(seeds) * n_routes, seeds=list(seeds), repeat_ticks=ex,
+        wall_s=wall, ms_per_tick=wall / ex * 1e3,
+        env_steps_per_s=ex * substeps * len(seeds) * n_routes / wall,
+        peak_memory_bytes=peak, launches=counts,
+        seed1_equal_to_untiled=True, seed2_fields_differing=differing,
+        agg={s: t["agg"] for s, (t, _) in tables.items()})
+    print("seed_axis " + json.dumps(report), flush=True)
+
+    k1 = []
+    for i, shape in enumerate(SEED_BATCH_K1_SHAPES, 1):
+        args = hamming_inputs(shape, dev, 100 + i)
+        ref = hm.cross_check_plain(*args)
+        for n in range(K1_CHECK_LAUNCHES):
+            out = hm.cross_check(*args, site="check")
+            for name, o, w in zip(("best_b", "matched", "best_d"), out, ref):
+                check(torch.equal(o, w), f"K1 {name} differs from its "
+                      f"plain version at {shape} on launch {n}")
+        check(bool(ref[1].any()), f"K1 at {shape}: nothing matched")
+        plan = hm.plan(shape[0], shape[1], shape[3])
+        k1.append(dict(
+            shape=list(shape), launches_equal=K1_CHECK_LAUNCHES,
+            matched=int(ref[1].sum()), grid=plan.grid(shape[0]),
+            max_active_clusters=hm.max_active_clusters(plan),
+            ms=time_cuda_graph(lambda: hm.cross_check(*args, site="check"),
+                               K1_TIMED_LAUNCHES),
+            plain_ms=time_cuda(lambda: hm.cross_check_plain(*args), 3)))
+    k2 = []
+    g = torch.Generator().manual_seed(100)
+    for shape in SEED_BATCH_K2_SHAPES:
+        tc, phi0 = wavefront_inputs(shape, dev, g)
+        ref = wf.wavefront_relax_plain(tc, phi0, KERNEL_ITERS)
+        for n in range(K2_CHECK_LAUNCHES):
+            check(torch.equal(wf.wavefront_relax(tc, phi0, KERNEL_ITERS),
+                              ref),
+                  f"K2 differs from its plain version at {shape} on launch "
+                  f"{n}")
+        k2.append(dict(
+            shape=list(shape), launches_equal=K2_CHECK_LAUNCHES,
+            max_active_clusters=wf.max_active_clusters(*shape[1:]),
+            ms=time_cuda(lambda: wf.wavefront_relax(tc, phi0, KERNEL_ITERS),
+                         5),
+            plain_ms=time_cuda(
+                lambda: wf.wavefront_relax_plain(tc, phi0, KERNEL_ITERS),
+                1)))
+    report.update(k1_checks=k1, k2_checks=k2)
+    print("seed_batch_kernels " + json.dumps(dict(k1=k1, k2=k2)), flush=True)
+    return report
+
+
 def run(seed: int = 0) -> int:
     import torch
 
@@ -3864,7 +3992,7 @@ def run(seed: int = 0) -> int:
     del gt_ctx, one_call
     ours, shared, ours_carry = timed(ours_main_path_phase, dev)
     rgbd_ba = timed(rgbd_ba_main_path_phase, shared, dev)
-    base = timed(baseline_main_path_phase, shared, dev)
+    base, base_traces = timed(baseline_main_path_phase, shared, dev)
     timed(terrain_tex_phase, shared, ours_carry)
     slam = timed(slam_main_path_phase, dev, card)
     cli = timed(cli_phase, dev)
@@ -3872,6 +4000,8 @@ def run(seed: int = 0) -> int:
     live = timed(live_phase, dev)
     place_recognition = timed(place_recognition_phase, dev, seed)
     timed(calibrate_split_phase, dev)
+    seed_axis = timed(seed_axis_phase, shared, base_traces["stock"], dev)
+    del base_traces
     ours_profile = timed(ours_profile_phase, shared, ours_carry)
     bench_profile = timed(benchmark_profile_phase, dev)
     timed(slam_profile_phase, dev)
@@ -3882,11 +4012,13 @@ def run(seed: int = 0) -> int:
     k1_launches = ours["launches"]["k1"] + rgbd_ba["launches"]["k1"] + \
         base["stock"]["launches"]["k1"] + base["encoder"]["launches"]["k1"] \
         + rgbd_slam["k1_launches_rgbd_slam"] + cli["launches"]["k1"] + \
-        bench_cli["launches"]["k1"] + live["launches"]["k1"]
+        bench_cli["launches"]["k1"] + live["launches"]["k1"] + \
+        seed_axis["launches"]["k1"]
     k2_launches = gt["launches"]["k2"] + ours["launches"]["k2"] + \
         rgbd_ba["launches"]["k2"] + base["stock"]["launches"]["k2"] + \
         base["encoder"]["launches"]["k2"] + cli["launches"]["k2"] + \
-        mesh["launches"]["k2"] + live["launches"]["k2"]
+        mesh["launches"]["k2"] + live["launches"]["k2"] + \
+        seed_axis["launches"]["k2"]
     kernels = {"kernels": [
         {
             "name": "hamming_cross_check",
@@ -3910,7 +4042,8 @@ def run(seed: int = 0) -> int:
                               rgbd_slam["k1_launches_rgbd_slam"]},
                 "cli": cli["launches"]["k1_sites"],
                 "benchmark": bench_cli["launches"]["k1_sites"],
-                "live": live["launches"]["k1_sites"]},
+                "live": live["launches"]["k1_sites"],
+                "seed_axis": seed_axis["launches"]["k1_sites"]},
             "plan": vio_row["plan"],
             "launch_floor_ms": vio_row["launch_floor_ms"],
             "eager_ms": vio_row["eager_ms"],
@@ -3938,6 +4071,7 @@ def run(seed: int = 0) -> int:
                 "ticks": PROFILE_TICKS,
                 "launches": ours_profile["k1_launches"],
                 "device_ms": ours_profile["k1_device_ms"]},
+            "seed_batch_checks": seed_axis["k1_checks"],
             "benchmark_profile_window": {
                 "ticks": BENCH_PROFILE_TICKS,
                 "launches": bench_profile["k1_launches"],
@@ -3964,7 +4098,8 @@ def run(seed: int = 0) -> int:
                                      base["encoder"]["launches"]["k2"],
                                  "cli": cli["launches"]["k2"],
                                  "mesh": mesh["launches"]["k2"],
-                                 "live": live["launches"]["k2"]},
+                                 "live": live["launches"]["k2"],
+                                 "seed_axis": seed_axis["launches"]["k2"]},
             "coarse_shape": coarse["shape"],
             "coarse_ms": coarse["ms"],
             "coarse_plain_ms": coarse["plain_ms"],
@@ -3972,6 +4107,7 @@ def run(seed: int = 0) -> int:
             "plan": window["plan"],
             "coarse_plan": coarse["plan"],
             "gt_determinism": determinism,
+            "seed_batch_checks": seed_axis["k2_checks"],
         },
         {
             "name": "solve_ba",

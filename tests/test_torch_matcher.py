@@ -10,6 +10,8 @@ position agrees to 1e-3 m.
 """
 
 import dataclasses
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -17,14 +19,30 @@ import numpy as np
 import pytest
 import torch
 
+from nclt_slam_tpu.baselines import configs as jbase
 from nclt_slam_tpu.config import DEFAULT
 from nclt_slam_tpu.landmarks import init_store, match_tick, record_tick
+from nclt_slam_tpu.landmarks.store import LandmarkStore
 from nclt_slam_tpu.landmarks.matcher import _kabsch as j_kabsch
 from nclt_slam_tpu.sensors.depth import camera_pose
-from nclt_slam_tpu.sensors.features import build_scene_features, observe
+from nclt_slam_tpu.sensors.features import (
+    Observation,
+    build_scene_features,
+    observe,
+)
 from nclt_slam_tpu_torch import interop
+from nclt_slam_tpu_torch.baselines import configs as tbase
 from nclt_slam_tpu_torch.config import DEFAULT as TDEFAULT
 from nclt_slam_tpu_torch.landmarks import matcher as tm
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "tools"))
+import torch_divergence_probe as probe  # noqa: E402
+
+# match_tick's JAX inputs at 09_se_ne's rgbd repeat, tick 150, and at
+# 12_ne_mid's, tick 45, cut by tools/torch_divergence_probe.py
+# --case-from from the probe's dumps
+CASE = Path(__file__).parent / "data" / "torch_matcher_case.npz"
+TIE_CASE = Path(__file__).parent / "data" / "torch_matcher_tie_case.npz"
 
 # the test workers share the CPU: one intra-op thread each keeps their
 # torch thread pools from oversubscribing it
@@ -133,3 +151,116 @@ def test_match_tick_matches_jax(strip_store, no_bias):
                                    atol=1e-6)
     reasons = {int(r.reason) for r in jres}
     assert tm.R_PUBLISHED in reasons and tm.R_NO_CANDIDATES in reasons
+
+
+def case_args(path):
+    """``match_tick``'s JAX inputs from a case file: (store, obs, vio_xy,
+    vio_heading, base_pos_vio, key, consistency_extra_m)."""
+    with np.load(path) as z:
+        c = dict(z)
+    store = LandmarkStore(*(jnp.asarray(c[f"store_{f}"])
+                            for f in LandmarkStore._fields))
+    obs = Observation(*(jnp.asarray(c[f"obs_{f}"])
+                        for f in Observation._fields))
+    return (store, obs, *(jnp.asarray(c[k]) for k in
+                          ("xy", "yaw", "query", "key", "extra")))
+
+
+def test_divergence_probe_holds_the_matcher_to_compiled_jax():
+    """``tools/torch_divergence_probe.py`` holds the port's ``match_tick``
+    on JAX's inputs against JAX's compiled matcher, which the JAX package's
+    rollouts run.  At ``09_se_ne``'s rgbd tick 150 JAX's matcher run op by
+    op parts from its compiled self by 0.5 mm and 2.7e-3 px (the Horn
+    power iteration is ill-conditioned there), beyond the probe's
+    ``STEP_ATOL``: against that eager run the probe called the port's
+    stage a fault; against the compiled one it holds."""
+    args = case_args(CASE)
+    cj, ct = jbase.rgbd_no_imu(), tbase.rgbd_no_imu()
+    compiled = probe.compiled_match_tick(cj.camera, cj.landmarks)(*args)
+    eager = match_tick(*args[:6], cj.camera, cj.landmarks,
+                       consistency_extra_m=args[6])
+    assert bool(compiled.ok) and int(compiled.n_inliers) == 53
+    b1 = probe.batch1
+    port = tm.match_tick(*(b1(a) for a in args[:6]), ct.camera, ct.landmarks,
+                         consistency_extra_m=b1(args[6]))
+    assert probe.held(probe.compare(probe.row0(port), compiled))
+    assert not probe.held(probe.compare(probe.row0(port), eager))
+    assert not probe.held(probe.compare(
+        jax.tree_util.tree_map(np.asarray, eager), compiled))
+
+
+def test_matcher_parts_from_jax_only_at_kabsch_start_ties():
+    """At ``12_ne_mid``'s rgbd tick 45 the probe's matcher check fails
+    with JAX compiled and run op by op agreeing (70 inliers) and the port
+    at 76: on the RANSAC hypotheses whose inlier counts differ, Horn's
+    four power-iteration starts tie within float32's rounding of their
+    Rayleigh quotients (float64 values 2e-8 to 2e-7 apart, relative; the
+    bound 2^-20), and JAX keeps one
+    start, the port another; each rotation is its start's float64 result.
+    The reference tie the RGB-D SLAM baseline shows (``chip_smoke.
+    kabsch_ties``), here in the anchor matcher: not a stage of the port
+    computing otherwise."""
+    from nclt_slam_tpu.landmarks.matcher import _project as j_project
+    from nclt_slam_tpu.sensors.features import cross_check_match as j_match
+
+    store, obs, xy, yaw, _, key, extra = case_args(TIE_CASE)
+    cj, ct = jbase.rgbd_no_imu(), tbase.rgbd_no_imu()
+    lc = cj.landmarks
+    compiled = probe.compiled_match_tick(cj.camera, lc)(
+        store, obs, xy, yaw, jnp.zeros(3), key, extra)
+    b1 = probe.batch1
+    port = tm.match_tick(b1(store), b1(obs), b1(xy), b1(yaw),
+                         torch.zeros(1, 3), b1(key), ct.camera, ct.landmarks,
+                         consistency_extra_m=b1(extra))
+    assert (int(compiled.n_inliers), int(port.n_inliers[0])) == (70, 76)
+
+    d = np.linalg.norm(np.asarray(store.cam_pos)[:, :2] - np.asarray(xy),
+                       axis=-1)
+    top = np.argsort(np.where(np.arange(lc.max_landmarks)
+                              < int(store.count), d, np.inf),
+                     kind="stable")[:lc.max_candidates]
+    keys = jax.random.split(key, lc.max_candidates)
+    n_ties = 0
+    for ci, li in enumerate(top[:4]):
+        m_idx, matched = j_match(store.desc[li], store.feat_valid[li],
+                                 obs.desc, obs.valid)
+        matched = np.asarray(matched)
+        pool = np.asarray(jnp.argsort(~jnp.asarray(matched)))
+        j = np.asarray(jax.random.randint(keys[ci], (lc.ransac_iterations, 3),
+                                          0, max(int(matched.sum()), 1)))
+        P = np.asarray(store.p3d_cam[li])[pool[j]]
+        Q = np.asarray(obs.p3d_cam)[np.asarray(m_idx)][pool[j]]
+        ok = (j[:, 0] != j[:, 1]) & (j[:, 1] != j[:, 2]) & (j[:, 0] != j[:, 2])
+        Rj, tj = j_kabsch(jnp.asarray(P), jnp.asarray(Q), jnp.ones(P.shape[:2]))
+        Rt, tt = tm._kabsch(torch.from_numpy(P), torch.from_numpy(Q),
+                            torch.ones(P.shape[:2]))
+        V, ray, mp, mq = tm._horn_starts(torch.from_numpy(P).double(),
+                                         torch.from_numpy(Q).double(),
+                                         torch.ones(P.shape[:2],
+                                                    dtype=torch.float64))
+        starts = [tm._start_pose(V, torch.full((P.shape[0],), k), mp, mq)[0]
+                  .numpy() for k in range(4)]
+
+        def inliers(R, t):
+            pred = np.einsum("hij,fj->hfi", R, np.asarray(store.p3d_cam[li])) \
+                + t[:, None]
+            uv = np.asarray(j_project(jnp.asarray(pred), cj.camera))
+            err = np.linalg.norm(uv - np.asarray(obs.uv)[np.asarray(m_idx)],
+                                 axis=-1)
+            return ((err < lc.ransac_reproj_px) & matched).sum(-1)
+
+        differ = np.flatnonzero(ok & (inliers(np.asarray(Rj), np.asarray(tj))
+                                      != inliers(Rt.numpy(), tt.numpy())))
+        for h in differ:
+            kj = min(range(4), key=lambda k: np.abs(
+                starts[k][h] - np.asarray(Rj)[h]).max())
+            kt = min(range(4), key=lambda k: np.abs(
+                starts[k][h] - Rt.numpy()[h]).max())
+            assert kj != kt, (ci, h)
+            assert np.abs(starts[kj][h] - np.asarray(Rj)[h]).max() < 1e-6
+            assert np.abs(starts[kt][h] - Rt.numpy()[h]).max() < 1e-6
+            r = ray[h].numpy()
+            # within the float32 rounding of a 16-term Rayleigh quotient
+            assert abs(r[kj] - r[kt]) < 2.0 ** -20 * abs(r[kj]), (ci, h, r)
+            n_ties += 1
+    assert n_ties >= 2

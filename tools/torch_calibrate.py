@@ -57,6 +57,22 @@ so it runs in pieces:
 The pieces give the one-call run's table bit for bit: the repeat is the
 same chain of ``run_campaign_repeat`` chunks, continued through its
 ``carry`` / ``tick0``.
+
+``--seeds 1-8`` (or ``1,3,5``; default ``1``) runs the repeat's seed axis
+as more batch rows off the one shared teach: row ``s * R + r`` is route
+``r`` at ``seeds[s]``, its block started from ``init_repeat_carry(...,
+seed=seeds[s])``, what ``run_repeat(seed=...)`` starts from.  The batch
+stops once every row of every seed is done; each seed's table is taken
+over the ticks its own untiled run would have executed (up to the first
+chunk boundary at which all of its routes are done), so it does not
+depend on the other seeds.  With any seeds but ``1`` alone, ``--json``
+gets one file holding a table per seed (``seeds``, ``tables``) beside the
+executed ticks, timings, peak device memory and card line:
+
+    python3 tools/torch_calibrate.py --routes all --mode stock \
+        --seeds 1-8 --teach-ckpt runs/teach.ckpt \
+        --repeat-ckpt runs/MODE_seeds.ckpt --budget-s 3300 \
+        --json artifacts/calibration_torch/seeds/MODE.json
 """
 
 from __future__ import annotations
@@ -340,13 +356,49 @@ def teach_phase(route_names, teach_ticks: int, device, ckpt, chunk: int,
     return shared, meta
 
 
+def cat_rows(trees):
+    """Concatenate states along their leading (route) dimension."""
+    import torch
+
+    if isinstance(trees[0], torch.Tensor):
+        return torch.cat(trees, 0)
+    return type(trees[0])(*(cat_rows(xs) for xs in zip(*trees)))
+
+
+def seed_batch(shared, mode: str, seeds):
+    """The repeat's seed axis as more batch rows, seed-major (row ``s * R +
+    r`` is route ``r`` at ``seeds[s]``): the campaign data, teach map,
+    waypoints and landmark stores tiled by ``expand_for_ablations``'s
+    ``torch.cat`` (one "drops" block a seed), and the carry the blocks of
+    ``init_repeat_carry(..., seed=s)`` on the mode's waypoints, what
+    ``run_repeat(seed=s)`` starts from.  Returns (data, teach_grid, wps,
+    n_wps, stores, carry)."""
+    from nclt_slam_tpu_torch.rollout.campaign import (
+        apply_stock_projection,
+        expand_for_ablations,
+    )
+    from nclt_slam_tpu_torch.rollout.repeat import init_repeat_carry
+
+    data, teach, wps, n_wps = shared
+    cfg = mode_config(mode)
+    big, grid, wps_k, n_k, stores, _ = expand_for_ablations(
+        data, teach.teach_grid, wps, n_wps, teach.store,
+        ablations=("drops",) * len(seeds))
+    run_wps, run_n = apply_stock_projection(teach.teach_grid, wps, n_wps,
+                                            cfg)
+    carry = cat_rows([init_repeat_carry(data.routes, run_wps, run_n, cfg,
+                                        seed=s) for s in seeds])
+    return big, grid, wps_k, n_k, stores, carry
+
+
 def repeat_phase(shared, mode: str, repeat_ticks: int, chunk: int, ckpt,
-                 budget_s, t_process: float, card):
-    """The mode's repeat: one ``run_campaign_repeat`` call, continued from
+                 budget_s, t_process: float, card, seeds=(1,)):
+    """The mode's repeat at ``seeds`` (``seed_batch``; one block at seed 1
+    is the untiled run): one ``run_campaign_repeat`` call, continued from
     ``ckpt`` if it holds one, paused at the chunk boundary past which the
     next chunk would not fit in ``budget_s`` seconds of the process (None:
-    never).  Returns (RepeatResult, meta), or None when it paused (the
-    carry and the trace so far are then in ``ckpt``)."""
+    never).  Returns (RepeatResult of every row, meta), or None when it
+    paused (the carry and the trace so far are then in ``ckpt``)."""
     import torch
 
     from nclt_slam_tpu_torch.io.artifacts import (
@@ -359,21 +411,24 @@ def repeat_phase(shared, mode: str, repeat_ticks: int, chunk: int, ckpt,
     )
     from nclt_slam_tpu_torch.rollout.repeat import RepeatResult, RepeatTrace
 
-    data, teach, wps, n_wps = shared
+    data = shared[0]
+    big, grid, wps, n_wps, stores, carry = seed_batch(shared, mode, seeds)
     dev = wps.device
     n_chunks, chunk = planned_chunks(repeat_ticks, chunk)
-    carry, before, tick = None, [], 0
+    before, tick = [], 0
     meta = {"mode": mode, "routes": list(data.names),
-            "repeat_ticks": repeat_ticks, "chunk": chunk, "repeat_s": 0.0,
-            "calls": 0, "cards": []}
+            "repeat_ticks": repeat_ticks, "chunk": chunk,
+            "seeds": list(seeds), "repeat_s": 0.0, "calls": 0, "cards": [],
+            "peak_bytes": 0}
     if ckpt is not None and Path(ckpt).is_file():
         blob = load_checkpoint(ckpt, dev)
         old = blob["meta"]
         want = {k: meta[k] for k in ("mode", "routes", "repeat_ticks",
-                                     "chunk")}
-        if {k: old[k] for k in want} != want:
+                                     "chunk", "seeds")}
+        if {k: old.get(k) for k in want} != want:
             raise SystemExit(f"{ckpt} holds a repeat of "
-                             f"{ {k: old[k] for k in want} }, not {want}")
+                             f"{ {k: old.get(k) for k in want} }, not "
+                             f"{want}")
         meta = old
         carry, tick = blob["carry"], old["tick"]
         before = [RepeatTrace(*(x.cpu().numpy() for x in blob["trace"]))]
@@ -382,7 +437,10 @@ def repeat_phase(shared, mode: str, repeat_ticks: int, chunk: int, ckpt,
     meta["calls"] += 1
     if card not in meta["cards"]:
         meta["cards"].append(card)
-    sync = (torch.cuda.synchronize if dev.type == "cuda" else lambda: None)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
     t_call = time.perf_counter()
     last = [t_call]
     paused = []
@@ -396,14 +454,16 @@ def repeat_phase(shared, mode: str, repeat_ticks: int, chunk: int, ckpt,
         return bool(paused)
 
     # a whole number of chunks from ``tick``: the one-call run's schedule
-    res = run_campaign_repeat(data, teach.teach_grid, wps, n_wps,
-                              mode_config(mode),
+    res = run_campaign_repeat(big, grid, wps, n_wps, mode_config(mode),
                               n_ticks=n_chunks * chunk - tick,
-                              stores=teach.store, chunk=chunk,
+                              stores=stores, chunk=chunk,
                               progress=progress(f"repeat[{mode}]"),
                               carry=carry, tick0=tick, pause=pause)
     sync()
     meta["repeat_s"] += time.perf_counter() - t_call
+    if cuda:
+        meta["peak_bytes"] = max(meta["peak_bytes"],
+                                 torch.cuda.max_memory_allocated(dev))
     meta["tick"] = tick + res.trace.done.shape[1]
     parts = before + [res.trace]
     if paused:
@@ -417,6 +477,42 @@ def repeat_phase(shared, mode: str, repeat_ticks: int, chunk: int, ckpt,
     trace = RepeatTrace(*(np.concatenate(xs, 1)[:, :repeat_ticks]
                           for xs in zip(*parts)))
     return RepeatResult(trace=trace, final=res.final), meta
+
+
+def seed_stop(done, repeat_ticks: int, chunk: int) -> int:
+    """The repeat ticks an untiled run of these rows executes (``done``
+    their (R, T) trace flags): ``run_campaign_repeat`` stops at the first
+    chunk boundary at which every row is done, else runs ``repeat_ticks``
+    (its trace trimmed to them)."""
+    from nclt_slam_tpu_torch.rollout.campaign import planned_chunks
+
+    n_chunks, chunk = planned_chunks(repeat_ticks, chunk)
+    for end in range(chunk, n_chunks * chunk, chunk):
+        if done[:, end - 1].all():
+            return end
+    return repeat_ticks
+
+
+def seed_tables(shared, rep, mode: str, seeds, repeat_ticks: int,
+                chunk: int, drift) -> dict:
+    """Each seed's table from the seed batch's result: seed -> (table, the
+    repeat ticks of its own untiled run, ``seed_stop``)."""
+    from nclt_slam_tpu_torch.rollout.campaign import campaign_metrics
+    from nclt_slam_tpu_torch.rollout.repeat import RepeatResult, RepeatTrace
+
+    data, _, wps, n_wps = shared
+    R = len(data.names)
+    out = {}
+    for i, s in enumerate(seeds):
+        rows = slice(i * R, (i + 1) * R)
+        n = seed_stop(rep.trace.done[rows], repeat_ticks, chunk)
+        trace = RepeatTrace(*(np.asarray(x)[rows, :n] for x in rep.trace))
+        per_route, agg = campaign_metrics(
+            data, RepeatResult(trace=trace, final=None), wps, n_wps,
+            mode_config(mode))
+        out[s] = (table(data.names, per_route, agg, drift,
+                        anchor_outcomes(data.names, trace), mode), n)
+    return out
 
 
 def report(names, per_route, agg, teach_drift, anchor, mode):
@@ -481,6 +577,34 @@ def json_path(template: str | None, mode: str, modes,
     return Path(template.replace("MODE", mode))
 
 
+def parse_seeds(text: str) -> tuple[int, ...]:
+    """``--seeds``: ranges and single seeds, comma-separated (``1-8``,
+    ``1,3,5``), in the order given; no seed twice."""
+    seeds = []
+    try:
+        for part in text.split(","):
+            lo, _, hi = part.partition("-")
+            seeds += range(int(lo), int(hi or lo) + 1)
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"not a seed list: {text!r}")
+    if not seeds or len(set(seeds)) != len(seeds):
+        raise argparse.ArgumentTypeError(
+            f"{text!r} gives no seed or a seed twice")
+    return tuple(seeds)
+
+
+def report_seeds(tables: dict, mode: str) -> None:
+    """One line a seed: its executed ticks and the banded aggregates."""
+    print(f"\n=== seed tables (mode={mode}) ===")
+    for s, (t, n) in tables.items():
+        a = t["agg"]
+        tot = sum(x["attempts"] for x in t["anchor"].values())
+        print(f"seed {s:>3}: {n:>6} ticks | reach {a['reach']}/{a['routes']} "
+              f"return {a['return']}/{a['routes']} "
+              f"cov {a['avg_coverage_pct']:.1f}% "
+              f"drift {a['avg_drift_mean']:.2f} m | {tot} anchor attempts")
+
+
 def main(argv=None):
     t_process = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -503,9 +627,11 @@ def main(argv=None):
     ap.add_argument("--budget-s", type=float, default=None,
                     help="pause the repeat into --repeat-ckpt before the "
                          "process has run this long")
+    ap.add_argument("--seeds", type=parse_seeds, default=(1,),
+                    help="the repeat's seeds as batch rows, e.g. 1-8; any "
+                         "but 1 alone writes a table a seed into --json")
     args = ap.parse_args(argv)
 
-    from nclt_slam_tpu_torch.rollout.campaign import campaign_metrics
     from nclt_slam_tpu_torch.scene.routes import ALL_ROUTES
 
     routes = (list(ALL_ROUTES) if args.routes == "all"
@@ -520,27 +646,36 @@ def main(argv=None):
     card = card_line(args.device)
     shared, teach_meta = teach_phase(routes, args.teach_ticks, args.device,
                                      args.teach_ckpt, args.chunk, card)
-    data, teach, wps, n_wps = shared
+    data, teach = shared[:2]
     drift = teach_drift(data.names, teach.trace)
     for mode in modes:
         out = repeat_phase(shared, mode, args.ticks, args.chunk, ckpts[mode],
-                           args.budget_s, t_process, card)
+                           args.budget_s, t_process, card, args.seeds)
         if out is None:
             return PAUSED
         rep, meta = out
         t0 = time.perf_counter()
-        per_route, agg = campaign_metrics(data, rep, wps, n_wps,
-                                          mode_config(mode))
-        anchor = anchor_outcomes(data.names, rep.trace)
+        tables = seed_tables(shared, rep, mode, args.seeds, args.ticks,
+                             meta["chunk"], drift)
         metrics_s = time.perf_counter() - t0
-        report(data.names, per_route, agg, drift, anchor, mode)
+        one = args.seeds == (1,)
+        if one:
+            report(data.names, *(tables[1][0][k] for k in (
+                "per_route", "agg", "teach_drift", "anchor")), mode)
+        else:
+            report_seeds(tables, mode)
         if paths[mode] is not None:
             executed = {"teach": teach_meta["teach_ticks_executed"],
                         "repeat": meta["tick"]}
             wall = {"build": teach_meta["build_s"],
                     "teach": teach_meta["teach_s"],
                     "repeat": meta["repeat_s"], "metrics": metrics_s}
-            out = table(data.names, per_route, agg, drift, anchor, mode)
+            out = (dict(tables[1][0]) if one else
+                   {"mode": mode, "seeds": list(args.seeds),
+                    "rows": len(args.seeds) * len(data.names),
+                    "tables": {str(s): dict(t, repeat_ticks=n)
+                               for s, (t, n) in tables.items()},
+                    "peak_memory_bytes": meta["peak_bytes"]})
             out.update(
                 ticks_executed=executed, wall_s=wall,
                 ms_per_tick={k: wall[k] / executed[k] * 1e3

@@ -22,7 +22,33 @@ by 2); the bands (``BANDS``) bound what such flips can move:
   (the r5 bound).
 
 The encoder table is reported beside them with no band: the JAX
-package's ``encoder.json`` predates its r5 teach.  Where the port's
+package's ``encoder.json`` predates its r5 teach.
+
+Where the port's directory holds ``seeds/MODE.json`` (``tools/
+torch_calibrate.py --seeds 1-8``: a table a seed off the same teach), the
+``spread`` section holds JAX's figures against the port's own spread over
+its K seeds, by a test fixed before the first seed run (``SPREAD``):
+
+- a scalar quantity of B1-B5 (reach, return, coverage, drift, each B5
+  share, attempts) is within spread when JAX's value lies in m +- t(0.995,
+  K-1) s sqrt(1 + 1/K), the two-sided 99 % prediction interval of one
+  new draw from the seeds' mean m and standard deviation s (s = 0: only m
+  itself);
+- a per-route flag (``reached_final``, ``returned_spawn``) is within spread
+  when at most ``max_unseen`` routes are unseen: no seed shows JAX's flag
+  there (each route's share of seeds with the flag set is printed).
+
+A missed band whose quantities are all within spread is "chaos"; one with
+a quantity outside is "outside" until the divergence probe has run its
+mode at the routes that put it outside (B2: the unseen routes; B1, B3-B5:
+the route whose JAX value lies furthest outside the route's own seed
+range), then "fault" when a probe found a stage that differs on JAX's
+inputs, "unresolved" when they all held.  Held bands with a quantity
+outside spread are listed too.  ``witness`` compares each seed file's
+seed-1 table with the mode's committed single-seed table: "equal", or the
+first route and field that differ.  ``--adopt-seed1 MODE`` replaces the
+mode's committed table by its seed file's seed-1 table (that seed's own
+executed ticks, the batch's timings) before the check.  Where the port's
 directory holds ``divergence.json`` (``tools/torch_divergence_probe.py
 --summary``), each missed band carries the probes of its mode (the route,
 the phase, the probe's verdict and the stages that decide the band,
@@ -34,7 +60,7 @@ deciding stage was never checked or no probe of the mode exists.
     python3 tools/torch_campaign_parity.py \\
         [--port-dir artifacts/calibration_torch] \\
         [--ref-dir artifacts/calibration] \\
-        [--out artifacts/calibration_torch/parity.json]
+        [--out artifacts/calibration_torch/parity.json] [--adopt-seed1 ours]
 
 Prints every band's value, limit and verdict; exits 0 whether or not a
 band is missed (the verdicts are the result; 2 when a table is missing).
@@ -44,6 +70,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import sys
 from pathlib import Path
 
@@ -76,6 +103,19 @@ BANDS = {
     "B5": {"modes": ("ours", "rgbd"), "points": 5.0, "rel": 0.20},
     "B6": {"rel": 0.30, "route_max_m": 1.2},
 }
+
+
+# The spread test over the port's seed tables: fixed before the first
+# seed run, never moved after.
+SEED_DIR = "seeds"
+SPREAD = {"level": 0.99, "max_unseen": 2}
+# t(0.995, df), Student's t two-sided 99 % quantile (scipy.stats.t.ppf)
+T995 = {1: 63.656741, 2: 9.924843, 3: 5.840909, 4: 4.604095, 5: 4.032143,
+        6: 3.707428, 7: 3.499483, 8: 3.355387, 9: 3.249836, 10: 3.169273,
+        11: 3.105807, 12: 3.05454, 13: 3.012276, 14: 2.976843,
+        15: 2.946713}
+# B1's counts and the per-route flags they count (B2's quantities)
+FLAGS = {"reach": "reached_final", "return": "returned_spawn"}
 
 
 def row(band, mode, quantity, port, jax, limit, held, **extra):
@@ -162,6 +202,188 @@ def teach_bands(port: dict, jax: dict) -> list:
                 tp[worst][0] < b["route_max_m"], route=worst)]
 
 
+def prediction_interval(values) -> tuple[float, float, list]:
+    """(mean, standard deviation, [lo, hi]) of the two-sided 99 %
+    prediction interval for one new draw from ``values`` (K >= 2)."""
+    k = len(values)
+    m = sum(values) / k
+    sd = math.sqrt(sum((v - m) ** 2 for v in values) / (k - 1))
+    if sd == 0.0:
+        return values[0], 0.0, [values[0], values[0]]
+    h = T995[k - 1] * sd * math.sqrt(1.0 + 1.0 / k)
+    return m, sd, [m - h, m + h]
+
+
+def scalar_quantities(table: dict, band: str) -> dict:
+    """Band -> {quantity: (campaign value, {route: the route's value})}."""
+    pr = table["per_route"]
+    if band == "B1":
+        return {k: (table["agg"][k], {n: float(m[f]) for n, m in pr.items()})
+                for k, f in FLAGS.items()}
+    if band == "B3":
+        return {"avg_coverage_pct": (table["agg"]["avg_coverage_pct"],
+                                     {n: m["cov_pct"] for n, m in pr.items()})}
+    if band == "B4":
+        return {"avg_drift_mean": (table["agg"]["avg_drift_mean"],
+                                   {n: m["drift_mean"]
+                                    for n, m in pr.items()})}
+    if band == "B5":
+        total, share = funnel(table["anchor"])
+        out = {f"{k} %": (share[k] * 100,
+                          {n: a["frac"].get(k, 0.0) * 100
+                           for n, a in table["anchor"].items()})
+               for k in OUTCOMES}
+        out["attempts"] = (total, {n: a["attempts"]
+                                   for n, a in table["anchor"].items()})
+        return out
+    return {}
+
+
+def furthest_route(jax_routes: dict, seed_routes: list) -> str:
+    """The route whose JAX value lies furthest outside the route's own seed
+    range (ties: furthest from the seeds' mean)."""
+    def key(n):
+        vals = [r[n] for r in seed_routes if r[n] is not None]
+        v = jax_routes[n]
+        if v is None or not vals:
+            return (-1.0, -1.0)
+        lo, hi = min(vals), max(vals)
+        return (max(lo - v, v - hi, 0.0), abs(v - sum(vals) / len(vals)))
+    return max(jax_routes, key=key)
+
+
+def mode_spread(mode: str, tables: list, jax: dict) -> list:
+    """Every quantity of B1-B5 of ``mode``: JAX's value against the port's
+    K seed tables."""
+    k = len(tables)
+    out = []
+    for band in ("B1", "B2", "B3", "B4", "B5"):
+        if mode not in BANDS[band]["modes"]:
+            continue
+        if band == "B2":
+            for f in FLAGS.values():
+                fj = flags(jax, f)
+                share = {n: sum(bool(t["per_route"][n][f]) for t in tables)
+                         / k for n in fj}
+                unseen = [n for n in fj
+                          if share[n] == (0.0 if fj[n] else 1.0)]
+                out.append({"band": band, "quantity": f,
+                            "jax_flags": "".join("R" if fj[n] else "."
+                                                 for n in fj),
+                            "share_set": share, "unseen": unseen,
+                            "within": len(unseen) <= SPREAD["max_unseen"],
+                            "probe_routes": unseen})
+            continue
+        jq = scalar_quantities(jax, band)
+        sq = [scalar_quantities(t, band) for t in tables]
+        for q, (jv, jroutes) in jq.items():
+            vals = [s[q][0] for s in sq]
+            m, sd, iv = prediction_interval(vals)
+            within = jv == m if sd == 0.0 else iv[0] <= jv <= iv[1]
+            out.append({"band": band, "quantity": q, "jax": jv,
+                        "values": vals, "mean": m, "sd": sd,
+                        "interval": iv, "within": within,
+                        "probe_routes": [furthest_route(
+                            jroutes, [s[q][1] for s in sq])]})
+    return out
+
+
+def spread_verdict(quantities: list, mode: str, probes: list) -> tuple:
+    """A band's spread verdict from its quantities and the divergence
+    probes of ``mode``: (verdict, the routes to probe)."""
+    outside = [q for q in quantities if not q["within"]]
+    if not outside:
+        return "chaos", []
+    routes = sorted({n for q in outside for n in q["probe_routes"]})
+    ran = {p["route"]: p["verdict"] for p in probes
+           if p["mode"] == mode and p["phase"] == "repeat"
+           and p["route"] in routes}
+    if "fault" in ran.values():
+        return "fault", routes
+    if len(ran) == len(routes) and all(v == "chaos" for v in ran.values()):
+        return "unresolved", routes
+    return "outside", routes
+
+
+def first_difference(got: dict, want: dict):
+    """The first (route, field) at which two tables differ (per route
+    figures, then the aggregates, the anchor outcomes and the teach
+    drift), or None."""
+    def differ(a, b):   # NaN (a route with no drift sample) equals NaN
+        return json.dumps(a) != json.dumps(b)
+
+    for name in want["per_route"]:
+        for f in want["per_route"][name]:
+            g = got["per_route"].get(name, {}).get(f)
+            if differ(g, want["per_route"][name][f]):
+                return {"route": name, "field": f, "seed1": g,
+                        "committed": want["per_route"][name][f]}
+    for key in ("agg", "anchor", "teach_drift"):
+        if differ(got[key], want[key]):
+            return {"route": None, "field": key}
+    return None
+
+
+def spread(port_dir: Path, jax: dict, port: dict, rows: list,
+           probes: list) -> dict | None:
+    """The ``spread`` section over the seed files in ``port_dir/seeds``."""
+    seed_dir = port_dir / SEED_DIR
+    files = {m: json.loads((seed_dir / f"{m}.json").read_text())
+             for m in BANDED if (seed_dir / f"{m}.json").is_file()}
+    if not files:
+        return None
+    res = {"test": SPREAD, "t995": {m: T995[len(f["seeds"]) - 1]
+                                    for m, f in files.items()},
+           "modes": {}, "bands": [], "held_outside": [], "witness": {}}
+    for m, f in files.items():
+        tables = [f["tables"][str(s)] for s in f["seeds"]]
+        qs = mode_spread(m, tables, jax[m])
+        res["modes"][m] = {"seeds": f["seeds"], "quantities": qs,
+                           "repeat_ticks": {str(s): f["tables"][str(s)][
+                               "repeat_ticks"] for s in f["seeds"]}}
+        one = f["tables"].get("1")
+        if one is not None:
+            diff = first_difference(one, port[m])
+            res["witness"][m] = "equal" if diff is None else diff
+        for band in sorted({q["band"] for q in qs}):
+            bq = [q for q in qs if q["band"] == band]
+            missed = any(not r["held"] for r in rows
+                         if r["band"] == band and r["mode"] == m)
+            verdict, routes = spread_verdict(bq, m, probes)
+            outside = [q["quantity"] for q in bq if not q["within"]]
+            res["bands"].append({"band": band, "mode": m, "missed": missed,
+                                 "outside": outside, "probe_routes": routes,
+                                 "spread": verdict})
+            if not missed and outside:
+                res["held_outside"].append({"band": band, "mode": m,
+                                            "outside": outside})
+    for r in rows:
+        if not r["held"] and r["mode"] in files:
+            r["spread"] = next(b["spread"] for b in res["bands"]
+                               if (b["band"], b["mode"]) ==
+                               (r["band"], r["mode"]))
+    return res
+
+
+def adopt_seed1(port_dir: Path, mode: str) -> Path:
+    """Replace ``port_dir/MODE.json`` by the seed-1 table of
+    ``seeds/MODE.json``: the JAX tool's keys, that seed's own executed
+    repeat ticks, and the batch's wall seconds, calls and card line."""
+    f = json.loads((port_dir / SEED_DIR / f"{mode}.json").read_text())
+    t = dict(f["tables"]["1"])
+    n = t.pop("repeat_ticks")
+    executed = {"teach": f["ticks_executed"]["teach"], "repeat": n}
+    wall = f["wall_s"]
+    t.update(ticks_executed=executed, wall_s=wall,
+             ms_per_tick={k: wall[k] / executed[k] * 1e3 for k in executed},
+             repeat_calls=f["repeat_calls"], card=f["card"],
+             seed_batch={"seeds": f["seeds"], "rows": f["rows"],
+                         "repeat_ticks": f["ticks_executed"]["repeat"]})
+    out = port_dir / f"{mode}.json"
+    out.write_text(json.dumps(t, indent=1))
+    return out
+
+
 def check(port_dir: Path, ref_dir: Path) -> dict:
     port = {m: json.loads((port_dir / f"{m}.json").read_text())
             for m in BANDED}
@@ -190,6 +412,9 @@ def check(port_dir: Path, ref_dir: Path) -> dict:
     for r in rows:
         if not r["held"]:
             r["evidence"], r["verdict"] = band_evidence(r, probes)
+    sp = spread(port_dir, jax, port, rows, probes)
+    if sp is not None:
+        res["spread"] = sp
     return res
 
 
@@ -228,6 +453,9 @@ def print_report(res: dict) -> None:
               f"{r['limit']:<26} {verdict}")
     for m, t in res["unbanded"].items():
         print(f"(no band) {m}: {json.dumps(t['agg'])}")
+    sp = res.get("spread")
+    if sp is not None:
+        print_spread(sp)
     for p in res.get("evidence", []):
         rep = p.get("repeat") or p.get("teach")
         part = rep.get("parting") or {}
@@ -238,6 +466,37 @@ def print_report(res: dict) -> None:
     print(f"missed bands: {res['missed_bands'] or 'none'}")
 
 
+def print_spread(sp: dict) -> None:
+    print("=== JAX against the port's seed spread (99 % prediction "
+          "interval; flags: at most "
+          f"{sp['test']['max_unseen']} unseen routes) ===")
+    for m, d in sp["modes"].items():
+        print(f"{m}: seeds {d['seeds']}, t = {sp['t995'][m]}, repeat ticks "
+              f"{d['repeat_ticks']}")
+        for q in d["quantities"]:
+            tag = "within" if q["within"] else "OUTSIDE"
+            if "unseen" in q:
+                share = " ".join(f"{v:.2f}" for v in q["share_set"].values())
+                print(f"  {q['band']} {q['quantity']:<20} jax "
+                      f"{q['jax_flags']}  seeds set {share}  unseen "
+                      f"{q['unseen']} {tag}")
+            else:
+                print(f"  {q['band']} {q['quantity']:<20} jax "
+                      f"{q['jax']:>9.3f}  seeds m {q['mean']:.3f} s "
+                      f"{q['sd']:.3f}  [{q['interval'][0]:.3f}, "
+                      f"{q['interval'][1]:.3f}] {tag} (route "
+                      f"{q['probe_routes'][0]})")
+    for b in sp["bands"]:
+        if b["missed"] or b["outside"]:
+            print(f"{b['band']} {b['mode']}: "
+                  f"{'missed' if b['missed'] else 'held'}, outside "
+                  f"{b['outside'] or 'none'} -> {b['spread']}"
+                  + (f" (probe {b['probe_routes']})"
+                     if b["probe_routes"] else ""))
+    for m, w in sp["witness"].items():
+        print(f"witness {m}: seed 1 against the committed table: {w}")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--port-dir", type=Path,
@@ -246,7 +505,12 @@ def main(argv=None) -> int:
                     default=REPO / "artifacts" / "calibration")
     ap.add_argument("--out", type=Path, default=None,
                     help="parity.json (default: in --port-dir)")
+    ap.add_argument("--adopt-seed1", choices=BANDED, action="append",
+                    default=[], help="replace the mode's table by its seed "
+                    "file's seed-1 table first")
     args = ap.parse_args(argv)
+    for m in args.adopt_seed1:
+        print(f"wrote {adopt_seed1(args.port_dir, m)}")
     missing = [str(d / f"{m}.json") for d in (args.port_dir, args.ref_dir)
                for m in BANDED if not (d / f"{m}.json").is_file()]
     if missing:

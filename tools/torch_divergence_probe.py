@@ -32,7 +32,9 @@ share the one teach).  For each phase it reports
   integration, the costmap window, the coarse potential,
   ``dispatch_plan``, ``dispatch_move`` and the follower, RPP for stock).
   A float part holds within ``STEP_ATOL`` (absolute, and relative to its
-  value), an integer or boolean part when equal.
+  value), an integer or boolean part when equal.  JAX's stages run op by
+  op, but for the anchor matcher, which runs compiled as in JAX's
+  rollouts (``compiled_match_tick``).
 
 The verdict is "chaos" when every stage holds on JAX's inputs at every
 checked tick while the runs part: float32 rounding accumulated over the
@@ -47,7 +49,12 @@ stages that decide a missed band were among them.
     JAX_PLATFORMS=cpu python tools/torch_divergence_probe.py \\
         --route 04_nw_se [--phase repeat --mode stock rgbd] \\
         [--ticks 3000] [--budget-s 3600] [--out runs/divergence.json] \\
-        [--summary artifacts/calibration_torch/divergence.json]
+        [--summary artifacts/calibration_torch/divergence.json] \\
+        [--dump runs/dump]
+
+``--case-from runs/dump/ROUTE_MODE_tickT.pkl --case-out FILE.npz --route
+ROUTE --mode MODE`` writes the matcher's JAX inputs at that dumped tick
+(``tests/data/torch_matcher_case.npz`` is ``09_se_ne``'s rgbd tick 150).
 
 ``--ticks``, ``--teach-ticks``, ``--after-parting`` and ``--budget-s``
 cap the CPU time (about 0.14 s a tick for both packages together on 8
@@ -59,6 +66,7 @@ times slower): the probe stops at a cap, the parting found or not.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import pickle
 import sys
@@ -97,6 +105,21 @@ REPEAT_DISCRETE = ("regime", "anchor_ok", "anchor_reason", "anchor_inliers",
 def batch1(tree):
     return interop.from_numpy_tree(jax.tree_util.tree_map(
         lambda x: np.asarray(x)[None], tree), "cpu")
+
+
+@functools.lru_cache(maxsize=None)
+def compiled_match_tick(cam, cfg):
+    """JAX's ``match_tick`` compiled, as the JAX package's rollout runs it:
+    the reference the port's matcher is held to.  Its Horn power iteration
+    is ill-conditioned, so op by op (eagerly) JAX rounds otherwise than its
+    own compiled code (0.5 mm and 2.7e-3 px apart at ``09_se_ne``, rgbd,
+    tick 150), more than ``STEP_ATOL``.  The probe's other stages run
+    eagerly; none of them has shown that."""
+    from nclt_slam_tpu.landmarks import matcher as jmat
+
+    return jax.jit(lambda store, obs, xy, yaw, query, key, extra:
+                   jmat.match_tick(store, obs, xy, yaw, query, key, cam, cfg,
+                                   consistency_extra_m=extra))
 
 
 def row0(tree):
@@ -272,7 +295,6 @@ def repeat_stage_chain(jc, tick, ctx) -> dict:
     from nclt_slam_tpu.control import rpp as jrpp
     from nclt_slam_tpu.control import supervisor as jsup
     from nclt_slam_tpu.fusion import relay as jrel
-    from nclt_slam_tpu.landmarks import matcher as jmat
     from nclt_slam_tpu.mapping import occupancy as jocc
     from nclt_slam_tpu.planning import dispatcher as jdis
     from nclt_slam_tpu.planning import wavefront as jwf
@@ -335,9 +357,9 @@ def repeat_stage_chain(jc, tick, ctx) -> dict:
         extra = jnp.minimum(cj.landmarks.consistency_relax_per_s * drought_s,
                             cj.landmarks.consistency_relax_max_m)
         query = jnp.array([robot.xy[0], robot.xy[1], 0.0])
-        res = jmat.match_tick(ctx["store_j"], obs, robot.xy, gt_yaw, query,
-                              k_match, cj.camera, cj.landmarks,
-                              consistency_extra_m=extra)
+        args = (ctx["store_j"], obs, robot.xy, gt_yaw, query, k_match, extra)
+        ctx["matcher_inputs"] = args
+        res = compiled_match_tick(cj.camera, cj.landmarks)(*args)
         tres = tmat.match_tick(ctx["store_jt"], b1(obs), b1(robot.xy),
                                b1(gt_yaw), b1(query), b1(k_match), ct.camera,
                                ct.landmarks, consistency_extra_m=b1(extra))
@@ -691,12 +713,22 @@ def main(argv=None) -> int:
                          "whose stages differ, to replay them")
     ap.add_argument("--out", type=Path, default=None,
                     help="the whole record, every stage's differences")
+    ap.add_argument("--case-from", type=Path, default=None,
+                    help="a --dump file: write match_tick's JAX inputs at "
+                         "its tick to --case-out and stop")
+    ap.add_argument("--case-out", type=Path, default=None)
     ap.add_argument("--summary", type=Path, default=None,
                     help="merge a summary into this file (e.g. "
                          "artifacts/calibration_torch/divergence.json, "
                          "which the parity check attaches to missed bands)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
+    if args.case_from is not None:
+        case = matcher_case(args.case_from, args.route, args.mode[0])
+        args.case_out.parent.mkdir(parents=True, exist_ok=True)
+        np.savez_compressed(args.case_out, **case)
+        print(f"wrote {args.case_out}")
+        return 0
 
     jc_cfg, tc_cfg = jcfg.ours(), tcfg.ours()
     jdata = jcamp.build_campaign([args.route], cfg=jc_cfg)
@@ -807,22 +839,76 @@ def add_summary(path: Path, res: dict) -> None:
     path.write_text(json.dumps({"probes": probes}, indent=1) + "\n")
 
 
-def repeat_probe(args, mode, ctx, jdata, tdata, jc, tc, tj, tt,
-                 t_start) -> dict:
-    """Each package's waypoints from its own teach, then both repeats in
-    lock step from the same seed."""
+def mode_configs(mode: str):
+    """(JAX config, port config) of a repeat mode."""
     from nclt_slam_tpu.baselines import configs as jbase
-    from nclt_slam_tpu.mapping.occupancy import occupancy_trinary as jtri
-    from nclt_slam_tpu.rollout import repeat as jrep
     from nclt_slam_tpu_torch.baselines import configs as tbase
-    from nclt_slam_tpu_torch.mapping.occupancy import \
-        occupancy_trinary as ttri
-    from nclt_slam_tpu_torch.rollout import repeat as trep
 
     make = {"ours": (jcfg.ours, tcfg.ours),
             "rgbd": (jbase.rgbd_no_imu, tbase.rgbd_no_imu),
             "stock": (jbase.stock_nav2, tbase.stock_nav2)}[mode]
-    cj, ct = make[0](), make[1]()
+    return make[0](), make[1]()
+
+
+def matcher_case(dump: Path, route: str, mode: str) -> dict:
+    """``match_tick``'s JAX inputs at a tick dumped by ``--dump`` (the
+    route's ``mode`` repeat), for a test to replay: the carry before the
+    tick stepped through the tick's stages up to the matcher, and the
+    landmark store cut to what the matcher can read (every landmark's
+    camera pose and count; descriptors, points and flags only of the
+    landmarks near the query, zeros elsewhere).  Keys ``store_<field>``,
+    ``obs_<field>``, ``xy``, ``yaw``, ``query``, ``key``, ``extra``,
+    ``tick``, ``route``, ``mode``."""
+    from nclt_slam_tpu.rollout import repeat as jrep
+
+    with open(dump, "rb") as f:
+        d = pickle.load(f)
+    cj, ct = mode_configs(mode)
+    jdata = jcamp.build_campaign([route], cfg=jcfg.ours())
+    tdata = tcamp.build_campaign([route], cfg=tcfg.ours(), device="cpu")
+    store_j = jax.tree_util.tree_map(jnp.asarray, d["store_j"])
+    grid_j = jnp.asarray(d["grid_j"])
+    scene_j = jax.tree_util.tree_map(lambda x: x[0], jdata.scenes_repeat)
+    route_j = jax.tree_util.tree_map(lambda x: x[0], jdata.routes)
+    step = jax.jit(lambda c, t: jrep.repeat_step(c, t, scene_j, route_j,
+                                                 grid_j, store_j, cj))
+    ctx = dict(cfg_j=cj, cfg_t=ct, scene_j=scene_j, route_j=route_j,
+               scene_t=tdata.scenes_repeat, route_t=tdata.routes,
+               store_j=store_j, store_jt=batch1(store_j), grid_j=grid_j,
+               grid_jt=torch.from_numpy(np.array(grid_j))[None],
+               jstep=lambda c, t: step(c, jnp.int32(t)), dump=None,
+               tag=f"{route}_{mode}")
+    tick = int(d["tick"])
+    repeat_stage_chain(jax.tree_util.tree_map(jnp.asarray, d["carry"]),
+                       tick, ctx)
+    store, obs, xy, yaw, query, key, extra = (
+        jax.tree_util.tree_map(np.asarray, x)
+        for x in ctx["matcher_inputs"])
+    lm = cj.landmarks
+    near = (np.arange(lm.max_landmarks) < store.count) & (np.hypot(
+        *(store.cam_pos[:, :2] - xy).T) < lm.candidate_radius_m + 1.0)
+    out = {f"store_{f}": v for f, v in store._asdict().items()}
+    for f in ("desc", "p3d_cam", "uv", "feat_valid", "n_feats"):
+        out[f"store_{f}"] = np.where(
+            near.reshape((-1,) + (1,) * (out[f"store_{f}"].ndim - 1)),
+            out[f"store_{f}"], 0).astype(out[f"store_{f}"].dtype)
+    out.update({f"obs_{f}": v for f, v in obs._asdict().items()})
+    out.update(xy=xy, yaw=yaw, query=query, key=key, extra=extra,
+               tick=tick, route=route, mode=mode)
+    return out
+
+
+def repeat_probe(args, mode, ctx, jdata, tdata, jc, tc, tj, tt,
+                 t_start) -> dict:
+    """Each package's waypoints from its own teach, then both repeats in
+    lock step from the same seed."""
+    from nclt_slam_tpu.mapping.occupancy import occupancy_trinary as jtri
+    from nclt_slam_tpu.rollout import repeat as jrep
+    from nclt_slam_tpu_torch.mapping.occupancy import \
+        occupancy_trinary as ttri
+    from nclt_slam_tpu_torch.rollout import repeat as trep
+
+    cj, ct = mode_configs(mode)
     teach_cfg_j = ctx["cfg_j"]
     grid_j = jtri(jc.grid, teach_cfg_j.map)
     grid_t = ttri(tc.grid, ctx["cfg_t"].map)
