@@ -204,17 +204,25 @@ Phases, each of which must pass (any failure exits non-zero):
     (``tools/torch_campaign_parity.py``) on the committed card tables and
     print its report;
 11i. drive the repeat's seed axis (``tools/torch_calibrate.py --seeds``)
-    with the launch counts set to 0 just before it: the stock repeat at 15
-    routes x seeds (1, 2) as 30 batch rows for 100 ticks off 11a's shared
-    teach; seed 1's rows bit-equal, in every trace field, to 11a's
-    untiled stock run, seed 2's differing in at least one field; print ms
-    a tick, peak device memory and each seed's aggregate; then K1 at the
-    seed batch's VIO (120,256)x(120,384) and matcher (600,256)x(120,256)
-    shapes and K2 at (120,192,192) and (120,119,232) x 384 (the 120 rows
-    of the 8-seed runs, in several waves), every launch bit-equal to the
-    plain version (stock runs no anchor matcher, whose batched 4 x 4
-    products round otherwise at 60 rows than at 15 or 30:
-    ``tools/torch_batch_probe.py``);
+    with the launch counts set to 0 just before each run: the stock
+    repeat at 15 routes x seeds (1, 2) as 30 batch rows for 100 ticks off
+    11a's shared teach; seed 1's rows bit-equal, in every trace field, to
+    11a's untiled stock run, seed 2's differing in at least one field;
+    print ms a tick, peak device memory and each seed's aggregate; then K1
+    at the seed batch's VIO (120,256)x(120,384) and matcher
+    (600,256)x(120,256) shapes and K2 at (120,192,192) and (120,119,232) x
+    384 (the 120 rows of the 8-seed runs, in several waves), every launch
+    bit-equal to the plain version; then rgbd and ours, the modes that run
+    the anchor matcher, at seeds 1-4 as 60 rows for 60 ticks (past the
+    first anchor attempts), seed 1's rows bit-equal in every trace field
+    to the first 60 ticks of the mode's untiled 15-row run in 11a, the
+    matcher's K1 launched; and the
+    matcher's Horn solve (``_horn_starts``) of the tie case's RANSAC
+    hypotheses at 15, 60 and 120 rows, the first rows' bits the same at
+    every size and the card's bits the CPU's (``tests/data/
+    torch_horn_tie_case.npz``, and every row solved again on the CPU;
+    where they part, the first torch call that does).  ``--seed-axis-only``
+    runs this phase alone, after the teach and the stock run it stands on;
 12. profile a short window of the ours repeat and one of the dataset
     benchmark's tick loop, and one full-width ICP, for
     the launches per tick (per ICP iteration), the device's busy share and
@@ -469,8 +477,18 @@ STOCK_DISCRETE = ("goal_blocked", "plan_fails", "recovery_phase")
 # the forced stall: RPP's progress checker allows 30 s (300 ticks), so its
 # recovery starts at tick 301
 STALL_TICKS = 320
-# the seed axis (11i): seeds of the witness run; the 8-seed runs' batch
+# the seed axis (11i): the stock witness run's seeds; K1's and K2's shapes
+# in the 8-seed runs' 120-row batch
 SEED_AXIS_SEEDS = (1, 2)
+# the rgbd and ours blocks: the seed tables' 4 seeds (60 rows) over the
+# first anchor attempts (tick 45 on the full-length teach)
+SEED_MATCHER_SEEDS = (1, 2, 3, 4)
+SEED_MATCHER_TICKS = 60     # at most 11a's untiled rgbd run (RGBD_REPEAT_TICKS)
+# the Horn solve of the tie case's RANSAC hypotheses at these batch rows,
+# and the CPU's result (tools/torch_horn_case.py)
+HORN_ROWS = (15, 60, 120)
+HORN_FIXTURE = REPO / "tests" / "data" / "torch_horn_tie_case.npz"
+HORN_FIELDS = ("V", "rayleigh", "mp", "mq")
 SEED_BATCH_K1_SHAPES = ((120, 256, 120, 384), (600, 256, 120, 256))
 SEED_BATCH_K2_SHAPES = ((120, 192, 192), (120, 119, 232))
 # points along a ray between its analytic and its later textured hit at
@@ -2834,7 +2852,7 @@ def ours_main_path_phase(dev):
         landmarks=teach.store.count.cpu().tolist())
     print("ours_campaign_metrics " + json.dumps(agg), flush=True)
     print("ours_main_path " + json.dumps(stats), flush=True)
-    return stats, (data, teach, wps, n_wps), rep.final
+    return stats, (data, teach, wps, n_wps), rep.final, rep.trace
 
 
 def ours_profile_phase(shared, carry):
@@ -2986,7 +3004,7 @@ def rgbd_ba_main_path_phase(shared, dev):
         rgbd_env_steps_per_s=plain_exec * substeps * n_routes / plain_s,
         rgbd_repeat_ms_per_tick=plain_s / plain_exec * 1e3)
     print("rgbd_ba_main_path " + json.dumps(stats), flush=True)
-    return stats
+    return stats, plain.trace
 
 
 @contextlib.contextmanager
@@ -3834,15 +3852,174 @@ def calibrate_split_phase(dev):
     return report
 
 
-def seed_axis_phase(shared, stock_trace, dev):
+def horn_rows(fx, n_rows: int, seed: int = 7):
+    """The tie case's RANSAC hypotheses (``fx``: P, Q, w) as row 0 of
+    ``n_rows`` rows, the others rolled along the hypothesis axis, their
+    live points moved by 1 mm noise from ``seed``."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    P = np.stack([np.roll(fx["P"], r, 1) for r in range(n_rows)])
+    Q = np.stack([np.roll(fx["Q"], r, 1) for r in range(n_rows)])
+    Q = (Q + rng.normal(0.0, 1e-3, Q.shape)
+         * (np.arange(n_rows) > 0)[:, None, None, None, None]
+         ).astype(np.float32)
+    w = np.ascontiguousarray(np.broadcast_to(fx["w"],
+                                             (n_rows,) + fx["w"].shape))
+    return P, Q, w
+
+
+def first_parting_op(fn, args, dev):
+    """Runs ``fn(*args)`` on the CPU and on ``dev``, keeping every torch
+    call's tensor result; the first call whose results differ: (index,
+    call, site, largest difference), or None."""
+    import traceback
+
+    import torch
+    from torch.overrides import TorchFunctionMode
+
+    class Log(TorchFunctionMode):
+        def __init__(self):
+            super().__init__()
+            self.outs = []
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if isinstance(out, torch.Tensor):
+                stack = traceback.extract_stack()[:-1]
+                site = next((f for f in reversed(stack)
+                             if "nclt_slam_tpu_torch" in f.filename),
+                            stack[-1])
+                self.outs.append((getattr(func, "__name__", str(func)),
+                                  f"{Path(site.filename).name}:{site.lineno}",
+                                  out.detach().cpu()))
+            return out
+
+    logs = []
+    for d in ("cpu", dev):
+        moved = [a.to(d) for a in args]
+        with Log() as log:
+            fn(*moved)
+        logs.append(log.outs)
+    for i, ((call, site, a), (_, _, b)) in enumerate(zip(*logs)):
+        if not same_bits(a, b):
+            diff = (a.double() - b.double()).abs().max().item() \
+                if a.is_floating_point() else None
+            return dict(index=i, call=call, site=site, max_abs_diff=diff)
+    return None
+
+
+def horn_batch_check(dev):
+    """``_horn_starts`` on the tie case's RANSAC hypotheses at
+    ``HORN_ROWS`` batch rows: the first rows' bits the same at every batch
+    size; the card's bits beside the CPU's (the fixture's row, and every
+    row solved again here on the CPU).  Returns (report, problems)."""
+    import numpy as np
+    import torch
+    from nclt_slam_tpu_torch.landmarks.matcher import _horn_starts
+
+    with np.load(HORN_FIXTURE) as z:
+        fx = dict(z)
+    rows = [torch.from_numpy(x) for x in horn_rows(fx, max(HORN_ROWS))]
+    outs = {n: [x.cpu() for x in _horn_starts(*(a[:n].to(dev)
+                                                for a in rows))]
+            for n in HORN_ROWS}
+    torch.cuda.synchronize()
+    cpu = _horn_starts(*rows)
+    n0, problems = HORN_ROWS[0], []
+    for n in HORN_ROWS[1:]:
+        for k, a, b in zip(HORN_FIELDS, outs[n0], outs[n]):
+            if not same_bits(a, b[:n0]):
+                problems.append(f"_horn_starts {k}: the first {n0} rows "
+                                f"differ at {n} rows from {n0} rows")
+    card = outs[max(HORN_ROWS)]
+    report = dict(
+        rows=list(HORN_ROWS), problems_per_row=int(np.prod(fx["w"].shape[:2])),
+        card_equals_fixture={k: same_bits(card[i][0], fx[k])
+                             for i, k in enumerate(HORN_FIELDS)},
+        cpu_here_equals_fixture={k: same_bits(cpu[i][0], fx[k])
+                                 for i, k in enumerate(HORN_FIELDS)},
+        card_equals_cpu={k: same_bits(a, b) for k, a, b in
+                         zip(HORN_FIELDS, card, cpu)},
+        max_abs_card_cpu={k: (a.double() - b.double()).abs().max().item()
+                          for k, a, b in zip(HORN_FIELDS, card, cpu)})
+    if not all(report["card_equals_cpu"].values()):
+        report["first_parting_op"] = first_parting_op(
+            _horn_starts, [a[:1] for a in rows], dev)
+        problems.append(f"_horn_starts: the card's bits differ from the "
+                        f"CPU's: {report['first_parting_op']}")
+    if not all(report["card_equals_fixture"].values()):
+        problems.append(f"_horn_starts: the card's bits differ from "
+                        f"{HORN_FIXTURE.name}: {report['card_equals_fixture']}")
+    return report, problems
+
+
+def seed_block(shared, mode: str, untiled, dev):
+    """``mode`` (rgbd or ours, the modes that run the anchor matcher) at
+    ``SEED_MATCHER_SEEDS`` as 60 batch rows for ``SEED_MATCHER_TICKS``:
+    seed 1's rows bit-equal in every trace field to the first ticks of
+    ``untiled``, 11a's untiled 15-row run of the mode (the same code at the
+    same shapes as ``repeat_phase`` at seed 1), the matcher's K1 launched
+    in the batch.  Returns (report, problems)."""
+    import torch
+    sys.path.insert(0, str(REPO / "tools"))
+    import torch_batch_probe
+    import torch_calibrate
+
+    n_routes = len(shared[0].names)
+    check(untiled.done.shape[1] >= SEED_MATCHER_TICKS,
+          f"11a's untiled {mode} run is shorter than the seed block")
+    one = type(untiled)(*(x[:, :SEED_MATCHER_TICKS] for x in untiled))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    rep, _ = torch_calibrate.repeat_phase(
+        shared, mode, SEED_MATCHER_TICKS, 250, None, None, 0.0, None,
+        seeds=SEED_MATCHER_SEEDS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    r = rep.trace
+    first = torch_batch_probe.first_differences(r, one, n_routes)
+    attempts = int((r.anchor_reason[:n_routes] >= 0).sum())
+    problems = []
+    if first:
+        t = min(first.values())
+        problems.append(f"seed axis: {mode} seed 1's rows at "
+                        f"{len(SEED_MATCHER_SEEDS) * n_routes} rows differ "
+                        f"from the untiled run, first at tick {t} in "
+                        f"{sorted(f for f, v in first.items() if v == t)} "
+                        f"(every field's first tick: {first})")
+    if counts["k1_sites"].get("matcher", 0) == 0 or attempts == 0:
+        problems.append(f"seed axis: the {mode} batch made no anchor "
+                        f"attempt: {counts['k1_sites']}")
+    traces_finite(((f"{mode} seed batch gt_xy", r.gt_xy),
+                   (f"{mode} seed batch nav_xy", r.nav_xy)))
+    ex = r.done.shape[1]
+    report = dict(
+        rows=len(SEED_MATCHER_SEEDS) * n_routes,
+        seeds=list(SEED_MATCHER_SEEDS), repeat_ticks=ex, wall_s=wall,
+        ms_per_tick=wall / ex * 1e3,
+        peak_memory_bytes=torch.cuda.max_memory_allocated(dev),
+        launches=counts, seed1_anchor_attempts=attempts,
+        seed1_first_difference=first,
+        seed1_equal_to_untiled=not first)
+    return report, problems
+
+
+def seed_axis_phase(shared, untiled, dev):
     """The repeat's seed axis as batch rows (``tools/torch_calibrate.py
     --seeds``): the stock repeat at 15 routes x ``SEED_AXIS_SEEDS`` off the
     shared teach for ``BASELINE_REPEAT_TICKS``.  Seed 1's rows bit-equal,
-    in every trace field, to ``stock_trace`` (11a's untiled run), seed 2's
+    in every trace field, to ``untiled["stock"]`` (11a's untiled run;
+    ``untiled`` holds 11a's stock, rgbd and ours traces), seed 2's
     differing in at least one field; ms a tick, peak device memory, each
     seed's aggregate.  Then K1 and K2 at the 8-seed batch's shapes, every
     launch bit-equal to the plain version (the kernels run there in more
-    waves than at any other checked shape)."""
+    waves than at any other checked shape).  Then ``seed_block`` for rgbd
+    and ours and ``horn_batch_check``; their failures are gathered and
+    raised together, so that one run names every block that fails."""
     import torch
     sys.path.insert(0, str(REPO / "tools"))
     import torch_calibrate
@@ -3870,7 +4047,8 @@ def seed_axis_phase(shared, stock_trace, dev):
     rows = {s: slice(i * n_routes, (i + 1) * n_routes)
             for i, s in enumerate(seeds)}
     for f in r._fields:
-        check(same_bits(getattr(r, f)[rows[1]], getattr(stock_trace, f)),
+        check(same_bits(getattr(r, f)[rows[1]],
+                        getattr(untiled["stock"], f)),
               f"seed axis: seed 1's {f} differs from 11a's untiled stock "
               f"run")
     differing = [f for f in r._fields
@@ -3932,10 +4110,20 @@ def seed_axis_phase(shared, stock_trace, dev):
                 1)))
     report.update(k1_checks=k1, k2_checks=k2)
     print("seed_batch_kernels " + json.dumps(dict(k1=k1, k2=k2)), flush=True)
+
+    problems = []
+    for mode in ("rgbd", "ours"):
+        report[mode], found = seed_block(shared, mode, untiled[mode], dev)
+        problems += found
+        print(f"seed_axis_{mode} " + json.dumps(report[mode]), flush=True)
+    report["horn"], found = horn_batch_check(dev)
+    problems += found
+    print("seed_axis_horn " + json.dumps(report["horn"]), flush=True)
+    check(not problems, "; ".join(problems))
     return report
 
 
-def run(seed: int = 0) -> int:
+def run(seed: int = 0, seed_axis_only: bool = False) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -3971,6 +4159,18 @@ def run(seed: int = 0) -> int:
         return res
 
     timed(build_phase)
+    if seed_axis_only:
+        # phase 11i and what it stands on: 11a's teach and stock run
+        _, shared, _, ours_trace = timed(ours_main_path_phase, dev)
+        _, rgbd_trace = timed(rgbd_ba_main_path_phase, shared, dev)
+        _, base_traces = timed(baseline_main_path_phase, shared, dev)
+        timed(seed_axis_phase, shared, dict(
+            stock=base_traces["stock"], rgbd=rgbd_trace, ours=ours_trace),
+            dev)
+        print("phase_seconds " + json.dumps(phase_s), flush=True)
+        print(f"chip_smoke: phase 11i passed in "
+              f"{time.perf_counter() - t_start:.1f} s", flush=True)
+        return 0
     k2_rows = timed(kernel_phase, dev)
     k1_rows = timed(hamming_phase, dev)
     k3 = timed(ba_phase, dev)
@@ -3990,8 +4190,8 @@ def run(seed: int = 0) -> int:
     determinism, one_call = timed(determinism_phase, *gt_ctx)
     mesh = timed(mesh_phase, gt_ctx, one_call)
     del gt_ctx, one_call
-    ours, shared, ours_carry = timed(ours_main_path_phase, dev)
-    rgbd_ba = timed(rgbd_ba_main_path_phase, shared, dev)
+    ours, shared, ours_carry, ours_trace = timed(ours_main_path_phase, dev)
+    rgbd_ba, rgbd_trace = timed(rgbd_ba_main_path_phase, shared, dev)
     base, base_traces = timed(baseline_main_path_phase, shared, dev)
     timed(terrain_tex_phase, shared, ours_carry)
     slam = timed(slam_main_path_phase, dev, card)
@@ -4000,8 +4200,9 @@ def run(seed: int = 0) -> int:
     live = timed(live_phase, dev)
     place_recognition = timed(place_recognition_phase, dev, seed)
     timed(calibrate_split_phase, dev)
-    seed_axis = timed(seed_axis_phase, shared, base_traces["stock"], dev)
-    del base_traces
+    seed_axis = timed(seed_axis_phase, shared, dict(
+        stock=base_traces["stock"], rgbd=rgbd_trace, ours=ours_trace), dev)
+    del base_traces, rgbd_trace, ours_trace
     ours_profile = timed(ours_profile_phase, shared, ours_carry)
     bench_profile = timed(benchmark_profile_phase, dev)
     timed(slam_profile_phase, dev)
@@ -4013,12 +4214,14 @@ def run(seed: int = 0) -> int:
         base["stock"]["launches"]["k1"] + base["encoder"]["launches"]["k1"] \
         + rgbd_slam["k1_launches_rgbd_slam"] + cli["launches"]["k1"] + \
         bench_cli["launches"]["k1"] + live["launches"]["k1"] + \
-        seed_axis["launches"]["k1"]
+        seed_axis["launches"]["k1"] + seed_axis["rgbd"]["launches"]["k1"] + \
+        seed_axis["ours"]["launches"]["k1"]
     k2_launches = gt["launches"]["k2"] + ours["launches"]["k2"] + \
         rgbd_ba["launches"]["k2"] + base["stock"]["launches"]["k2"] + \
         base["encoder"]["launches"]["k2"] + cli["launches"]["k2"] + \
         mesh["launches"]["k2"] + live["launches"]["k2"] + \
-        seed_axis["launches"]["k2"]
+        seed_axis["launches"]["k2"] + seed_axis["rgbd"]["launches"]["k2"] + \
+        seed_axis["ours"]["launches"]["k2"]
     kernels = {"kernels": [
         {
             "name": "hamming_cross_check",
@@ -4043,7 +4246,9 @@ def run(seed: int = 0) -> int:
                 "cli": cli["launches"]["k1_sites"],
                 "benchmark": bench_cli["launches"]["k1_sites"],
                 "live": live["launches"]["k1_sites"],
-                "seed_axis": seed_axis["launches"]["k1_sites"]},
+                "seed_axis": seed_axis["launches"]["k1_sites"],
+                "seed_axis_rgbd": seed_axis["rgbd"]["launches"]["k1_sites"],
+                "seed_axis_ours": seed_axis["ours"]["launches"]["k1_sites"]},
             "plan": vio_row["plan"],
             "launch_floor_ms": vio_row["launch_floor_ms"],
             "eager_ms": vio_row["eager_ms"],
@@ -4099,7 +4304,11 @@ def run(seed: int = 0) -> int:
                                  "cli": cli["launches"]["k2"],
                                  "mesh": mesh["launches"]["k2"],
                                  "live": live["launches"]["k2"],
-                                 "seed_axis": seed_axis["launches"]["k2"]},
+                                 "seed_axis": seed_axis["launches"]["k2"],
+                                 "seed_axis_rgbd":
+                                     seed_axis["rgbd"]["launches"]["k2"],
+                                 "seed_axis_ours":
+                                     seed_axis["ours"]["launches"]["k2"]},
             "coarse_shape": coarse["shape"],
             "coarse_ms": coarse["ms"],
             "coarse_plain_ms": coarse["plain_ms"],
@@ -4177,9 +4386,12 @@ def main(argv=None) -> int:
                                  "CUDA card.")
     ap.add_argument("--seed", type=int, default=0,
                     help="seed of the place-recognition data and model")
+    ap.add_argument("--seed-axis-only", action="store_true",
+                    help="run phase 11i alone (with the teach and the stock "
+                    "run it compares with), without the result lines")
     args = ap.parse_args(argv)
     try:
-        return run(args.seed)
+        return run(args.seed, args.seed_axis_only)
     except SmokeError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from nclt_slam_tpu_torch.config import CameraConfig, LandmarkConfig
-from nclt_slam_tpu_torch.core import prng
+from nclt_slam_tpu_torch.core import ordered, prng
 from nclt_slam_tpu_torch.core.quat import quat_to_mat
 from nclt_slam_tpu_torch.landmarks.store import LandmarkStore
 from nclt_slam_tpu_torch.sensors.depth import R_BASE_CAM
@@ -56,29 +56,41 @@ def _horn_starts(P, Q, w):
     """Horn's quaternion method short of its choice of start: the weighted
     centroids mp, mq (..., 1, 3), the four starts after the power iteration
     V (..., 4, 4) (one a column, rows w x y z) and their Rayleigh quotients
-    (..., 4).  In the dtype of P."""
+    (..., 4).  In the dtype of P.
+
+    Every sum is in a fixed order (``core/ordered.py``): over the points
+    by a pairwise tree, over the 4 x 4 algebra left to right in the JAX
+    package's order (its unrolled Python sums: the power step over j, the
+    norm over i, the Rayleigh quotient's 16 terms ``(V[i] * N[i][j]) *
+    V[j]`` i-major), so a row's result does not depend on the rows beside
+    it."""
     w = w[..., None]
-    wsum = w.sum(-2, keepdim=True).clamp_min(1e-6)
-    mp = (P * w).sum(-2, keepdim=True) / wsum              # (..., 1, 3)
-    mq = (Q * w).sum(-2, keepdim=True) / wsum
-    H = torch.matmul(((P - mp) * w).transpose(-1, -2), Q - mq)  # (..., 3, 3)
+    wsum = ordered.tree_sum(w, -2).clamp_min(1e-6)
+    mp = ordered.tree_sum(P * w, -2) / wsum                 # (..., 1, 3)
+    mq = ordered.tree_sum(Q * w, -2) / wsum
+    X, Y = (P - mp) * w, Q - mq
+    H = ordered.tree_sum(X[..., :, None] * Y[..., None, :], -3)[..., 0, :, :]
     sxx, sxy, sxz = H[..., 0, 0], H[..., 0, 1], H[..., 0, 2]
     syx, syy, syz = H[..., 1, 0], H[..., 1, 1], H[..., 1, 2]
     szx, szy, szz = H[..., 2, 0], H[..., 2, 1], H[..., 2, 2]
-    shift = 2.0 * torch.sqrt((H * H).sum((-2, -1))) + 1e-6
+    shift = 2.0 * ordered.sqrt(ordered.seq_sum((H * H).flatten(-2), -1)) \
+        + 1e-6
     Nm = torch.stack([
         sxx + syy + szz + shift, syz - szy, szx - sxz, sxy - syx,
         syz - szy, sxx - syy - szz + shift, sxy + syx, szx + sxz,
         szx - sxz, sxy + syx, -sxx + syy - szz + shift, syz + szy,
         sxy - syx, szx + sxz, syz + szy, -sxx - syy + szz + shift,
     ], -1).reshape(H.shape[:-2] + (4, 4))
-    V = torch.full((4, 4), 0.05, dtype=H.dtype, device=H.device) + \
-        1.0 * torch.eye(4, dtype=H.dtype, device=H.device)
+    eye = torch.eye(4, dtype=torch.bool, device=H.device)
+    V = torch.where(eye, torch.tensor(1.05, dtype=H.dtype, device=H.device),
+                    torch.tensor(0.05, dtype=H.dtype, device=H.device))
     V = V.expand(Nm.shape)
     for _ in range(_POWER_ITERS):
-        V2 = torch.matmul(Nm, V)
-        V = V2 / (torch.sqrt((V2 * V2).sum(-2, keepdim=True)) + 1e-12)
-    rayleigh = (V * torch.matmul(Nm, V)).sum(-2)           # (..., 4)
+        V2 = ordered.mm(Nm, V)
+        nrm = ordered.sqrt(ordered.seq_sum(V2 * V2, -2)[..., None, :])
+        V = V2 / (nrm + 1e-12)
+    terms = V[..., :, None, :] * Nm[..., :, :, None] * V[..., None, :, :]
+    rayleigh = ordered.seq_sum(terms.flatten(-3, -2), -2)   # (..., 4)
     return V, rayleigh, mp, mq
 
 
@@ -88,7 +100,7 @@ def _start_pose(V, k, mp, mq):
         k.shape + (4, 1)))[..., 0]                         # (..., 4) wxyz
     R = quat_to_mat(torch.stack([v[..., 1], v[..., 2], v[..., 3],
                                  v[..., 0]], -1))
-    t = mq[..., 0, :] - torch.matmul(R, mp[..., 0, :, None])[..., 0]
+    t = mq[..., 0, :] - ordered.mm(R, mp[..., 0, :, None])[..., 0]
     return R, t
 
 
@@ -99,7 +111,8 @@ def _kabsch(P, Q, w):
     Horn's quaternion method: the dominant eigenvector of the 4x4 N matrix
     by a fixed 24-step power iteration from all four basis starts, the one
     with the largest Rayleigh quotient kept — the JAX package's algorithm,
-    with the 4x4 algebra as batched (..., 4, 4) products."""
+    with the 4x4 algebra as broadcast (..., 4, 4) products summed in its
+    order (``_horn_starts``)."""
     V, rayleigh, mp, mq = _horn_starts(P, Q, w)
     return _start_pose(V, rayleigh.argmax(-1), mp, mq)
 
@@ -120,11 +133,11 @@ def _take_last(x, idx):
     return out.reshape(idx.shape + x.shape[lead + 1:])
 
 
-def ransac_pose(p3d_teach, uv_live, p3d_live, pair_valid, key,
-                cam: CameraConfig, cfg: LandmarkConfig):
-    """RANSAC T_live_teach from matched (teach 3-D, live 2-D/3-D) pairs,
-    batched over the leading dims of ``pair_valid`` (..., F); ``key``
-    (..., 2).  Returns (R, t, n_inliers, median_reproj, ok)."""
+def ransac_samples(p3d_teach, p3d_live, pair_valid, key,
+                   cfg: LandmarkConfig):
+    """RANSAC's minimal sets: ``cfg.ransac_iterations`` 3-point samples of
+    the matched pairs, (teach, live) points (..., H, 3, 3), whether each
+    is a valid hypothesis (..., H) and the number of matched pairs (...,)."""
     Hn = cfg.ransac_iterations
     # minimal sets from the compacted matched pool (matched indices first)
     pool = torch.sort((~pair_valid).to(torch.uint8), dim=-1, stable=True).indices
@@ -139,7 +152,17 @@ def ransac_pose(p3d_teach, uv_live, p3d_live, pair_valid, key,
     flat = idx.reshape(idx.shape[:-2] + (-1,))
     Pt = _take_last(p3d_teach, flat).reshape(idx.shape + (3,))
     Pl = _take_last(p3d_live, flat).reshape(idx.shape + (3,))
-    Rs, ts = _kabsch(Pt, Pl, torch.ones(idx.shape, device=idx.device))
+    return Pt, Pl, hyp_ok, n_pairs
+
+
+def ransac_pose(p3d_teach, uv_live, p3d_live, pair_valid, key,
+                cam: CameraConfig, cfg: LandmarkConfig):
+    """RANSAC T_live_teach from matched (teach 3-D, live 2-D/3-D) pairs,
+    batched over the leading dims of ``pair_valid`` (..., F); ``key``
+    (..., 2).  Returns (R, t, n_inliers, median_reproj, ok)."""
+    Pt, Pl, hyp_ok, n_pairs = ransac_samples(p3d_teach, p3d_live,
+                                             pair_valid, key, cfg)
+    Rs, ts = _kabsch(Pt, Pl, torch.ones(Pt.shape[:-1], device=Pt.device))
 
     # score every hypothesis by the reprojection of ALL teach points
     pred = torch.matmul(p3d_teach[..., None, :, :],
@@ -270,10 +293,10 @@ def match_tick(store: LandmarkStore, obs: Observation, vio_xy, vio_heading,
     zero, one = torch.zeros_like(c), torch.ones_like(c)
     Rz = torch.stack([c, -s, zero, s, c, zero, zero, zero, one],
                      -1).reshape(B, C, 3, 3)
-    R_w_t = torch.matmul(Rz, torch.tensor(R_BASE_CAM, device=dev))
-    t_t_l = -torch.matmul(R.transpose(-1, -2), t[..., None])[..., 0]
+    R_w_t = ordered.mm(Rz, torch.tensor(R_BASE_CAM, device=dev))
+    t_t_l = -ordered.mm(R.transpose(-1, -2), t[..., None])[..., 0]
     cam_worlds = store.cam_pos[rows[:, None], top] + \
-        torch.matmul(R_w_t, t_t_l[..., None])[..., 0]
+        ordered.mm(R_w_t, t_t_l[..., None])[..., 0]
     oks = top_ok & enough & pnp_ok
 
     score = torch.where(oks, n_inls, torch.full_like(n_inls, -1))

@@ -2,8 +2,9 @@
 / power-iteration Kabsch, and ``match_tick`` on the forest strip of
 ``tests/test_landmarks.py`` for a batch of query poses.
 
-Tolerances.  ``_kabsch`` reduces its 4x4 products in another order than
-the JAX package's unrolled scalar sums: R and t agree to 1e-5.  The RANSAC
+Tolerances.  ``_kabsch`` sums its 4x4 products in the order of the JAX
+package's unrolled scalar sums, but XLA fuses multiply-adds where the port
+rounds each product: R and t agree to 1e-5.  The RANSAC
 samples are bit-exact (threefry ``randint``), so every discrete outcome of
 ``match_tick`` (published, reason, inlier count) is equal and the anchor
 position agrees to 1e-3 m.
@@ -169,11 +170,15 @@ def case_args(path):
 def test_divergence_probe_holds_the_matcher_to_compiled_jax():
     """``tools/torch_divergence_probe.py`` holds the port's ``match_tick``
     on JAX's inputs against JAX's compiled matcher, which the JAX package's
-    rollouts run.  At ``09_se_ne``'s rgbd tick 150 JAX's matcher run op by
-    op parts from its compiled self by 0.5 mm and 2.7e-3 px (the Horn
-    power iteration is ill-conditioned there), beyond the probe's
-    ``STEP_ATOL``: against that eager run the probe called the port's
-    stage a fault; against the compiled one it holds."""
+    rollouts run, or else against the same JAX code run op by op
+    (``matcher_compare``).  At ``09_se_ne``'s rgbd tick 150 JAX's matcher
+    run op by op parts from its compiled self by 0.5 mm and 2.7e-3 px (the
+    Horn power iteration is ill-conditioned there), beyond the probe's
+    ``STEP_ATOL``.  The port sums its 4 x 4 algebra in the order of JAX's
+    unrolled sums, one rounding a product, as the op-by-op run does (the
+    compiled code fuses multiply-adds): it gives that run's median
+    reprojection to the bit and its anchor within 2e-6 m, and the probe
+    holds it there."""
     args = case_args(CASE)
     cj, ct = jbase.rgbd_no_imu(), tbase.rgbd_no_imu()
     compiled = probe.compiled_match_tick(cj.camera, cj.landmarks)(*args)
@@ -183,30 +188,36 @@ def test_divergence_probe_holds_the_matcher_to_compiled_jax():
     b1 = probe.batch1
     port = tm.match_tick(*(b1(a) for a in args[:6]), ct.camera, ct.landmarks,
                          consistency_extra_m=b1(args[6]))
-    assert probe.held(probe.compare(probe.row0(port), compiled))
-    assert not probe.held(probe.compare(probe.row0(port), eager))
     assert not probe.held(probe.compare(
         jax.tree_util.tree_map(np.asarray, eager), compiled))
+    assert not probe.held(probe.compare(probe.row0(port), compiled))
+    assert probe.held(probe.compare(probe.row0(port), eager))
+    assert float(port.reproj[0]) == float(eager.reproj)
+    np.testing.assert_allclose(port.xy[0].numpy(), np.asarray(eager.xy),
+                               atol=2e-6)
+    parts = probe.matcher_compare(probe.row0(port), compiled,
+                                  probe.jmat_eager(cj)(*args))
+    assert probe.held(parts)
+    assert {v["reference"] for v in parts.values()} == {"eager"}
 
 
 def test_matcher_parts_from_jax_only_at_kabsch_start_ties():
     """At ``12_ne_mid``'s rgbd tick 45 the probe's matcher check fails
     with JAX compiled and run op by op agreeing (70 inliers) and the port
-    at 76: on the RANSAC hypotheses whose inlier counts differ, Horn's
-    four power-iteration starts tie within float32's rounding of their
-    Rayleigh quotients (float64 values 2e-8 to 2e-7 apart, relative; the
-    bound 2^-20), and JAX keeps one
-    start, the port another; each rotation is its start's float64 result.
-    The reference tie the RGB-D SLAM baseline shows (``chip_smoke.
-    kabsch_ties``), here in the anchor matcher: not a stage of the port
-    computing otherwise."""
-    from nclt_slam_tpu.landmarks.matcher import _project as j_project
-    from nclt_slam_tpu.sensors.features import cross_check_match as j_match
-
-    store, obs, xy, yaw, _, key, extra = case_args(TIE_CASE)
+    at 76: on match_tick's own candidates, every RANSAC hypothesis whose
+    rotation or inlier count differs is one where Horn's four
+    power-iteration starts tie within float32's rounding of their Rayleigh
+    quotients (float64 values 2e-8 to 2e-7 apart, relative; the bound
+    2^-20), and JAX keeps one start, the port another; each rotation is its
+    start's float64 result.  The port sums the 4 x 4 algebra in JAX's
+    order; its point sums (the centroids, the cross-covariance) are a fixed
+    tree, XLA's a dot, and one ulp there decides such a tie.  The reference
+    tie the RGB-D SLAM baseline shows (``chip_smoke.kabsch_ties``), here in
+    the anchor matcher: not a stage of the port computing otherwise."""
+    args = case_args(TIE_CASE)
+    store, obs, xy, yaw, _, key, extra = args
     cj, ct = jbase.rgbd_no_imu(), tbase.rgbd_no_imu()
-    lc = cj.landmarks
-    compiled = probe.compiled_match_tick(cj.camera, lc)(
+    compiled = probe.compiled_match_tick(cj.camera, cj.landmarks)(
         store, obs, xy, yaw, jnp.zeros(3), key, extra)
     b1 = probe.batch1
     port = tm.match_tick(b1(store), b1(obs), b1(xy), b1(yaw),
@@ -214,53 +225,14 @@ def test_matcher_parts_from_jax_only_at_kabsch_start_ties():
                          consistency_extra_m=b1(extra))
     assert (int(compiled.n_inliers), int(port.n_inliers[0])) == (70, 76)
 
-    d = np.linalg.norm(np.asarray(store.cam_pos)[:, :2] - np.asarray(xy),
-                       axis=-1)
-    top = np.argsort(np.where(np.arange(lc.max_landmarks)
-                              < int(store.count), d, np.inf),
-                     kind="stable")[:lc.max_candidates]
-    keys = jax.random.split(key, lc.max_candidates)
-    n_ties = 0
-    for ci, li in enumerate(top[:4]):
-        m_idx, matched = j_match(store.desc[li], store.feat_valid[li],
-                                 obs.desc, obs.valid)
-        matched = np.asarray(matched)
-        pool = np.asarray(jnp.argsort(~jnp.asarray(matched)))
-        j = np.asarray(jax.random.randint(keys[ci], (lc.ransac_iterations, 3),
-                                          0, max(int(matched.sum()), 1)))
-        P = np.asarray(store.p3d_cam[li])[pool[j]]
-        Q = np.asarray(obs.p3d_cam)[np.asarray(m_idx)][pool[j]]
-        ok = (j[:, 0] != j[:, 1]) & (j[:, 1] != j[:, 2]) & (j[:, 0] != j[:, 2])
-        Rj, tj = j_kabsch(jnp.asarray(P), jnp.asarray(Q), jnp.ones(P.shape[:2]))
-        Rt, tt = tm._kabsch(torch.from_numpy(P), torch.from_numpy(Q),
-                            torch.ones(P.shape[:2]))
-        V, ray, mp, mq = tm._horn_starts(torch.from_numpy(P).double(),
-                                         torch.from_numpy(Q).double(),
-                                         torch.ones(P.shape[:2],
-                                                    dtype=torch.float64))
-        starts = [tm._start_pose(V, torch.full((P.shape[0],), k), mp, mq)[0]
-                  .numpy() for k in range(4)]
-
-        def inliers(R, t):
-            pred = np.einsum("hij,fj->hfi", R, np.asarray(store.p3d_cam[li])) \
-                + t[:, None]
-            uv = np.asarray(j_project(jnp.asarray(pred), cj.camera))
-            err = np.linalg.norm(uv - np.asarray(obs.uv)[np.asarray(m_idx)],
-                                 axis=-1)
-            return ((err < lc.ransac_reproj_px) & matched).sum(-1)
-
-        differ = np.flatnonzero(ok & (inliers(np.asarray(Rj), np.asarray(tj))
-                                      != inliers(Rt.numpy(), tt.numpy())))
-        for h in differ:
-            kj = min(range(4), key=lambda k: np.abs(
-                starts[k][h] - np.asarray(Rj)[h]).max())
-            kt = min(range(4), key=lambda k: np.abs(
-                starts[k][h] - Rt.numpy()[h]).max())
-            assert kj != kt, (ci, h)
-            assert np.abs(starts[kj][h] - np.asarray(Rj)[h]).max() < 1e-6
-            assert np.abs(starts[kt][h] - Rt.numpy()[h]).max() < 1e-6
-            r = ray[h].numpy()
-            # within the float32 rounding of a 16-term Rayleigh quotient
-            assert abs(r[kj] - r[kt]) < 2.0 ** -20 * abs(r[kj]), (ci, h, r)
-            n_ties += 1
-    assert n_ties >= 2
+    # every valid hypothesis whose rotation or inlier count differs: two
+    # different starts' float64 results, their Rayleigh quotients within
+    # float32's rounding of a 16-term sum (probe.START_TIE_REL, 2^-20)
+    ties = probe.matcher_start_ties(args, cj)
+    assert ties["not_ties"] == [] and ties["ties"] >= 2, ties
+    # so the divergence probe reads the tick as a tie, not a fault
+    parts = probe.matcher_compare(
+        probe.row0(port), compiled, probe.jmat_eager(cj)(*args),
+        lambda: ties)
+    assert probe.held(parts)
+    assert {v["reference"] for v in parts.values()} == {"start_tie"}

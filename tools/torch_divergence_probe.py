@@ -34,7 +34,10 @@ share the one teach).  For each phase it reports
   A float part holds within ``STEP_ATOL`` (absolute, and relative to its
   value), an integer or boolean part when equal.  JAX's stages run op by
   op, but for the anchor matcher, which runs compiled as in JAX's
-  rollouts (``compiled_match_tick``).
+  rollouts (``compiled_match_tick``); the port's matcher holds when it
+  holds against that or against JAX's op-by-op run, whose order of
+  rounding it follows, or when every RANSAC hypothesis on which the two
+  differ is a Horn start tie (``matcher_compare``).
 
 The verdict is "chaos" when every stage holds on JAX's inputs at every
 checked tick while the runs part: float32 rounding accumulated over the
@@ -110,16 +113,141 @@ def batch1(tree):
 @functools.lru_cache(maxsize=None)
 def compiled_match_tick(cam, cfg):
     """JAX's ``match_tick`` compiled, as the JAX package's rollout runs it:
-    the reference the port's matcher is held to.  Its Horn power iteration
-    is ill-conditioned, so op by op (eagerly) JAX rounds otherwise than its
+    the matcher result the probe carries on.  Its Horn power iteration is
+    ill-conditioned, so op by op (eagerly) JAX rounds otherwise than its
     own compiled code (0.5 mm and 2.7e-3 px apart at ``09_se_ne``, rgbd,
-    tick 150), more than ``STEP_ATOL``.  The probe's other stages run
-    eagerly; none of them has shown that."""
+    tick 150), more than ``STEP_ATOL`` (``matcher_compare``).  The probe's
+    other stages run eagerly; none of them has shown that."""
     from nclt_slam_tpu.landmarks import matcher as jmat
 
     return jax.jit(lambda store, obs, xy, yaw, query, key, extra:
                    jmat.match_tick(store, obs, xy, yaw, query, key, cam, cfg,
                                    consistency_extra_m=extra))
+
+
+def jmat_eager(cj):
+    """JAX's ``match_tick`` run op by op (``cj``'s camera and landmarks):
+    every product of its 4 x 4 algebra rounded once, in the order of its
+    unrolled sums, as the port computes them."""
+    from nclt_slam_tpu.landmarks import matcher as jmat
+
+    def run(store, obs, xy, yaw, query, key, extra):
+        return jmat.match_tick(store, obs, xy, yaw, query, key, cj.camera,
+                               cj.landmarks, consistency_extra_m=extra)
+    return run
+
+
+def matcher_compare(port, compiled, eager, ties=None) -> dict:
+    """The port's matcher against JAX's compiled matcher (``compare``) or,
+    where that does not hold, against the same JAX code run op by op: the
+    compiled code fuses multiply-adds, so on an ill-conditioned power
+    iteration the two JAX runs part by more than ``STEP_ATOL`` while the
+    port follows the op-by-op order (0.5 mm and 2.7e-3 px at
+    ``09_se_ne``, rgbd, tick 150).  Where neither holds, ``ties()``
+    (``matcher_start_ties``) may show that every RANSAC hypothesis on
+    which the two packages differ is a Horn start tie, which float32 cannot
+    decide: the stage then holds.  Each part records what it was held to
+    (``reference``: compiled, eager, start_tie) and the tie record, if
+    any."""
+    parts = compare(port, compiled)
+    ref, extra = "compiled", {}
+    if not held(parts):
+        alt = compare(port, eager)
+        if held(alt):
+            parts, ref = alt, "eager"
+        elif ties is not None:
+            extra = {"start_ties": ties()}
+            t = extra["start_ties"]
+            if t["differing"] and not t["not_ties"]:
+                parts = {k: dict(v, held=True) for k, v in parts.items()}
+                ref = "start_tie"
+    return {k: dict(v, reference=ref, **extra) for k, v in parts.items()}
+
+
+# a Horn start ties the best when its float64 Rayleigh quotient is within
+# this of the best's (relative): float32's rounding of a 16-term sum
+START_TIE_REL = 2.0 ** -20
+
+
+def matcher_start_ties(args, cj) -> dict:
+    """On ``match_tick``'s candidates at JAX's inputs ``args`` (JAX's
+    distance and heading gates, block-death masks and keys), RANSAC's
+    3-point hypotheses solved by JAX's ``_kabsch`` (op by op) and by the
+    port's; every valid hypothesis whose rotation (beyond 1e-5) or inlier
+    count differs is a Horn start tie when JAX's and the port's rotations
+    are two different starts' float64 results (within 1e-6) whose Rayleigh
+    quotients lie within ``START_TIE_REL`` of each other.  Returns
+    {"differing": n, "ties": n, "not_ties": [[candidate, hypothesis],
+    ...]}."""
+    from nclt_slam_tpu.landmarks.matcher import _block_dead as j_block_dead
+    from nclt_slam_tpu.landmarks.matcher import _kabsch as j_kabsch
+    from nclt_slam_tpu.landmarks.matcher import _project as j_project
+    from nclt_slam_tpu.sensors.features import cross_check_match as j_match
+    from nclt_slam_tpu_torch.landmarks import matcher as tm
+
+    store, obs, xy, yaw = args[:4]
+    key, lc = args[5], cj.landmarks
+    d = jnp.linalg.norm(store.cam_pos[:, :2] - xy[None, :], axis=-1)
+    hdg = jnp.abs(jnp.arctan2(jnp.sin(store.cam_yaw - yaw),
+                              jnp.cos(store.cam_yaw - yaw)))
+    cand = (jnp.arange(lc.max_landmarks) < store.count) & \
+        (d < lc.candidate_radius_m) & (hdg < jnp.deg2rad(lc.heading_tol_deg))
+    d_masked = jnp.where(cand, d, jnp.inf)
+    top = np.asarray(jnp.argsort(d_masked))[:lc.max_candidates]
+    top_ok = np.isfinite(np.asarray(d_masked)[top])
+    sess_off = jnp.mod(store.cam_pos[0, 0] * 0.7548777
+                       + store.cam_pos[0, 1] * 0.5698403, 1.0)
+    keys = jax.random.split(key, lc.max_candidates)
+    out = {"differing": 0, "ties": 0, "not_ties": []}
+    for ci, li in enumerate(top):
+        if not top_ok[ci]:
+            continue
+        m_idx, matched = j_match(store.desc[li], store.feat_valid[li],
+                                 obs.desc, obs.valid)
+        matched = np.asarray(matched & ~j_block_dead(li, sess_off, lc))
+        pool = np.asarray(jnp.argsort(~jnp.asarray(matched)))
+        j = np.asarray(jax.random.randint(keys[ci], (lc.ransac_iterations, 3),
+                                          0, max(int(matched.sum()), 1)))
+        teach = np.asarray(store.p3d_cam[li])
+        P = teach[pool[j]]
+        Q = np.asarray(obs.p3d_cam)[np.asarray(m_idx)][pool[j]]
+        ok = (j[:, 0] != j[:, 1]) & (j[:, 1] != j[:, 2]) & \
+            (j[:, 0] != j[:, 2]) & (matched.sum() >= 3)
+        Rj, tj = (np.asarray(x) for x in j_kabsch(
+            jnp.asarray(P), jnp.asarray(Q), jnp.ones(P.shape[:2])))
+        Rt, tt = (x.numpy() for x in tm._kabsch(
+            torch.from_numpy(P), torch.from_numpy(Q),
+            torch.ones(P.shape[:2])))
+        V, ray, mp, mq = tm._horn_starts(
+            torch.from_numpy(P).double(), torch.from_numpy(Q).double(),
+            torch.ones(P.shape[:2], dtype=torch.float64))
+        starts = [tm._start_pose(V, torch.full((P.shape[0],), k), mp, mq)[0]
+                  .numpy() for k in range(4)]
+        uv_live = np.asarray(obs.uv)[np.asarray(m_idx)]
+
+        def inliers(R, t):
+            pred = np.einsum("hij,fj->hfi", R, teach) + t[:, None]
+            uv = np.asarray(j_project(jnp.asarray(pred), cj.camera))
+            err = np.linalg.norm(uv - uv_live, axis=-1)
+            return ((err < lc.ransac_reproj_px) & matched).sum(-1)
+
+        apart = np.abs(Rj - Rt).max((-2, -1)) > 1e-5
+        differ = np.flatnonzero(ok & (apart | (inliers(Rj, tj)
+                                               != inliers(Rt, tt))))
+        for h in differ:
+            near = [np.abs(starts[k][h] - R[h]).max((-2, -1))
+                    for R in (Rj, Rt) for k in range(4)]
+            kj = int(np.argmin(near[:4]))
+            kt = int(np.argmin(near[4:]))
+            r = ray[h].numpy()
+            tie = kj != kt and near[kj] < 1e-6 and near[4 + kt] < 1e-6 and \
+                abs(r[kj] - r[kt]) < START_TIE_REL * abs(r[kj])
+            out["differing"] += 1
+            if tie:
+                out["ties"] += 1
+            else:
+                out["not_ties"].append([ci, int(h)])
+    return out
 
 
 def row0(tree):
@@ -363,7 +491,9 @@ def repeat_stage_chain(jc, tick, ctx) -> dict:
         tres = tmat.match_tick(ctx["store_jt"], b1(obs), b1(robot.xy),
                                b1(gt_yaw), b1(query), b1(k_match), ct.camera,
                                ct.landmarks, consistency_extra_m=b1(extra))
-        out["match_tick"] = compare(row0(tres), res)
+        out["match_tick"] = matcher_compare(
+            row0(tres), res, jmat_eager(cj)(*args),
+            lambda: matcher_start_ties(args, cj))
         upd = jrel.anchor_update(fusion, res.xy, res.std, tick, cj.fusion)
         tupd = trel.anchor_update(b1(fusion), b1(res.xy), b1(res.std), tick,
                                   ct.fusion)
@@ -571,7 +701,8 @@ def one_step(jstep, tstep, jcarry, tick, ctx, chain) -> dict:
 
 def lockstep(jstep, tstep, jc, tc, ticks, discrete, ctx, chain, t_start,
              budget_s, stop_at_parting=True, until_done=False,
-             tstep_check=None, cadences=(), after_parting=None):
+             tstep_check=None, cadences=(), after_parting=None,
+             check_ticks=()):
     """Step both packages from their own carries and check one step from
     JAX's carry before each tick of interest (the port stepped by
     ``tstep_check``, default ``tstep``): the first tick at which each
@@ -581,8 +712,9 @@ def lockstep(jstep, tstep, jc, tc, ticks, discrete, ctx, chain, t_start,
     at which that cadence runs (a stage that runs every fifth tick is
     checked where it runs).  With
     ``after_parting`` the lock step runs on past the parting until every
-    such tick is checked or that many ticks have passed.  Returns
-    (record, jc, tc, traces_j, traces_t)."""
+    such tick is checked or that many ticks have passed.  The ticks of
+    ``check_ticks`` are checked too, and the lock step runs until the last
+    of them.  Returns (record, jc, tc, traces_j, traces_t)."""
     tstep_check = tstep_check or tstep
     rec = {"first_discrete": None, "parting": None, "first_differs": {},
            "checks": [], "gt_gap_m_every_100": []}
@@ -627,6 +759,8 @@ def lockstep(jstep, tstep, jc, tc, ticks, discrete, ctx, chain, t_start,
                 if (name, a) not in cad_done and runs(t):
                     cad_done.add((name, a))
                     why.append(f"first {name} tick from the {a}")
+        if t in check_ticks:
+            why.append("asked (--check-ticks)")
         if why:
             rec["checks"].append({"tick": t, "why": why, "gt_gap_m": d,
                                   "step": one_step(jstep, tstep_check, prev,
@@ -642,7 +776,8 @@ def lockstep(jstep, tstep, jc, tc, ticks, discrete, ctx, chain, t_start,
         if rec["parting"] is not None and after_parting is not None:
             covered = len(rec["first_differs"]) == len(discrete) and \
                 len(cad_done) == len(cadences) * len(anchors)
-            if covered or t - anchors["parting"] >= after_parting:
+            if (covered or t - anchors["parting"] >= after_parting) and \
+                    t >= max(check_ticks, default=-1):
                 break
         if until_done and bool(np.asarray(jtr.done)) and \
                 bool(ttr.done[0]):
@@ -708,6 +843,9 @@ def main(argv=None) -> int:
                     help="ticks a repeat runs on past the GT parting to "
                          "reach every check")
     ap.add_argument("--budget-s", type=float, default=3600.0)
+    ap.add_argument("--check-ticks", type=int, nargs="+", default=[],
+                    help="repeat ticks to check besides the ones the probe "
+                         "picks (the lock step runs until the last)")
     ap.add_argument("--dump", type=Path, default=None,
                     help="directory: JAX's carry before each checked tick "
                          "whose stages differ, to replay them")
@@ -970,7 +1108,8 @@ def repeat_probe(args, mode, ctx, jdata, tdata, jc, tc, tj, tt,
                        REPEAT_DISCRETE, rctx, repeat_stage_chain, t_start,
                        args.budget_s, stop_at_parting=False,
                        tstep_check=tstep_jax_artefacts, cadences=cadences,
-                       after_parting=args.after_parting)
+                       after_parting=args.after_parting,
+                       check_ticks=set(args.check_ticks))
     rec["waypoints"] = wps
     return rec
 
