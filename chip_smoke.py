@@ -56,7 +56,12 @@ Phases, each of which must pass (any failure exits non-zero):
    100 teach + 100 repeat ticks) and compare within the tolerances below;
 7. replay the JAX reference fixture of the ours campaign
    (``tests/data/torch_ours_campaign_fixture.npz``: 2 routes at full width,
-   150 VIO-teach + 150 full-stack repeat ticks) and compare;
+   150 VIO-teach + 150 full-stack repeat ticks) and compare; the VIO
+   waypoints by ``waypoint_flip_check``: both fixture routes teach along a
+   straight line, where ``procrustes_align_2d``'s mirror images tie, so the
+   port may keep either of two tied flips, and its waypoints are held
+   against the fixture's track aligned under the port's flip; this replay's
+   repeat and those below take the port's track under the fixture's flip;
 8. replay the JAX reference fixture of the ``rgbd_ba`` repeat
    (``tests/data/torch_rgbd_ba_campaign_fixture.npz``: 150 ticks off the
    same teach, VIO without the inertial term, the GT-stall watchdog, local
@@ -179,8 +184,8 @@ Phases, each of which must pass (any failure exits non-zero):
     written and every row finite; print ms a tick and env steps/s of each
     session;
 11f. run the live drive server in-process (``cli.live.main`` on a
-    thread: ``--route 01_road --mode ours --teach-ticks 300 --chunk 25
-    --max-chunks 8`` on a free port), launch counts set to 0 just before
+    thread: ``--route 01_road --mode ours --teach-ticks 200 --chunk 25
+    --max-chunks 5`` on a free port), launch counts set to 0 just before
     it, and drive it over HTTP: the page, ``/scene.json``, ``/depth.png``
     (its signature and a 320x240 IHDR), ``/state.json`` until the tick
     advances, a POSTed goal seen in the state; K1 at both sites and K2
@@ -213,7 +218,7 @@ Phases, each of which must pass (any failure exits non-zero):
     (600,256)x(120,256) shapes and K2 at (120,192,192) and (120,119,232) x
     384 (the 120 rows of the 8-seed runs, in several waves), every launch
     bit-equal to the plain version; then rgbd and ours, the modes that run
-    the anchor matcher, at seeds 1-4 as 60 rows for 60 ticks (past the
+    the anchor matcher, at seeds 1-8 as 120 rows for 60 ticks (past the
     first anchor attempts), seed 1's rows bit-equal in every trace field
     to the first 60 ticks of the mode's untiled 15-row run in 11a, the
     matcher's K1 launched; and the
@@ -229,9 +234,18 @@ Phases, each of which must pass (any failure exits non-zero):
     K2's and K1's device time in the ours window (last, because the
     profiler slows every launch that follows it in the process).
 
+Phases 6-8b and 8d run in one child process (``--group fixtures``) and
+8c, 8e and 11c-11h in another (``--group dataset``), both started after
+phase 5c on the same card and run beside phases 9-11b and 11i of the main
+process (each phase's tick is bound by its process's host thread, so the
+three share the card at about the speed of one); each child's lines are
+printed after phase 11i, and its failure fails the run.  Phase 12 runs
+after both have ended.
+
 Each main path runs with the kernels' launch counts set to 0 just before
-it and read just after.  The last three lines are a JSON line of
-per-kernel results, the card line, and ``{"ok": true, "device": {...}}``.
+it and read just after (the counts are each process's own).  The last
+three lines are a JSON line of per-kernel results, the card line, and
+``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
 """
@@ -311,9 +325,9 @@ CALIB_REPEAT_TICKS = 50
 CALIB_CHUNK = 25
 CALIB_DIR = REPO / "build" / "calibrate_split"
 # the live drive server in-process: an ours drive of one route in chunks
-LIVE_TEACH_TICKS = 300
+LIVE_TEACH_TICKS = 200
 LIVE_CHUNK = 25
-LIVE_CHUNKS = 8
+LIVE_CHUNKS = 5     # the goal posted after the first chunk shows by tick 100
 LIVE_DEADLINE_S = 300
 BENCH_PROFILE_TICKS = 5
 # K1 problems: (a-sets, A rows, b-sets, B rows), 8 words (256 bits) a row
@@ -360,6 +374,11 @@ FIX_OCC_MISMATCH_FRAC = 0.01
 # waypoints taken from it, and the repeat's fused nav pose, whose rounding
 # grows through the relay's alignment and the anchors' corrections
 FIX_VIO_ATOL_M = 1e-3
+# two of procrustes_align_2d's four flips tie on a track when their mean
+# alignment errors, computed in float64, lie within this of each other: a
+# straight teach ties to ~5e-17 m (the ours fixture), a real preference on
+# a curved one is orders of magnitude larger
+PROCRUSTES_TIE_GAP_M = 1e-9
 FIX_NAV_ATOL_M = 1e-2
 DIVERGE_M = 1e-4   # "divergence starts" at the first tick beyond this
 # the rgbd_ba replay holds the traces up to this tick and the refined ring
@@ -480,9 +499,10 @@ STALL_TICKS = 320
 # the seed axis (11i): the stock witness run's seeds; K1's and K2's shapes
 # in the 8-seed runs' 120-row batch
 SEED_AXIS_SEEDS = (1, 2)
-# the rgbd and ours blocks: the seed tables' 4 seeds (60 rows) over the
-# first anchor attempts (tick 45 on the full-length teach)
-SEED_MATCHER_SEEDS = (1, 2, 3, 4)
+# the rgbd and ours blocks: 8 seeds (120 rows, where the VIO's normal
+# equations depended on the batch before they were summed in a fixed
+# order) over the first anchor attempts (tick 45 on the full-length teach)
+SEED_MATCHER_SEEDS = tuple(range(1, 9))
 SEED_MATCHER_TICKS = 60     # at most 11a's untiled rgbd run (RGBD_REPEAT_TICKS)
 # the Horn solve of the tie case's RANSAC hypotheses at these batch rows,
 # and the CPU's result (tools/torch_horn_case.py)
@@ -1828,9 +1848,102 @@ def fixture_phase(dev):
     return report
 
 
-def ours_fixture_phase(dev):
-    """Replay the JAX reference ours campaign (2 routes) and compare."""
+def procrustes_ties(vio_xy, gt_xy):
+    """(the flips of ``procrustes_align_2d`` that tie on this track, every
+    flip's mean alignment error): the flips whose error, computed in
+    float64, lies within ``PROCRUSTES_TIE_GAP_M`` of the least.  A flip
+    about a straight GT line fits as well as the unflipped track, and then
+    the float32 rounding of the VIO track decides which one the alignment
+    keeps."""
     import numpy as np
+    from nclt_slam_tpu_torch.eval.metrics import procrustes_flips_2d
+
+    _, errs = procrustes_flips_2d(np.asarray(vio_xy, np.float64),
+                                  np.asarray(gt_xy, np.float64))
+    best = min(errs)
+    tied = [k for k, e in enumerate(errs) if e - best <= PROCRUSTES_TIE_GAP_M]
+    return tied, [float(e) for e in errs]
+
+
+def flip_waypoints(gt_xy, vio_xy, done, planner, flips=None):
+    """``campaign.teach_waypoints(source="vio")`` of (R, T, 2) traces with
+    each route's flip given (``flips``; None: the one ``procrustes_align_2d``
+    keeps): (wps (R, max_wp, 2), n_wps (R,), the flips used), numpy."""
+    import numpy as np
+    from nclt_slam_tpu_torch.eval.metrics import (
+        procrustes_flips_2d,
+        procrustes_pick,
+    )
+    from nclt_slam_tpu_torch.rollout.campaign import subsample_waypoints
+
+    gt_xy, vio_xy, done = (np.asarray(a) for a in (gt_xy, vio_xy, done))
+    wps, ns, used = [], [], []
+    for i in range(len(gt_xy)):
+        live = ~done[i]
+        tracks, errs = procrustes_flips_2d(vio_xy[i][live], gt_xy[i][live])
+        k = procrustes_pick(errs) if flips is None else flips[i]
+        w, n = subsample_waypoints(tracks[k], len(tracks[k]), planner)
+        wps.append(w)
+        ns.append(n)
+        used.append(k)
+    return np.stack(wps), np.array(ns, np.int32), used
+
+
+def waypoint_flip_check(port, ref, ref_wps, ref_n, planner):
+    """Hold the port's VIO waypoints against the reference's where the
+    reference's own VIO track may tie between Procrustes flips.  ``port``
+    and ``ref`` are (gt_xy, vio_xy, done) traces of the same routes.  The
+    port's waypoints pass if, on every route, the flip the port keeps is
+    among those that tie on the reference's VIO track
+    (``procrustes_ties``), the counts equal the reference's, and the
+    waypoints lie within ``FIX_VIO_ATOL_M`` of the reference's VIO track
+    aligned under the port's flip.  Returns (report, failures, the flip the
+    reference keeps on each route)."""
+    import numpy as np
+
+    p_w, p_n, p_flips = flip_waypoints(*port, planner)
+    r_w, r_n, r_flips = flip_waypoints(*ref, planner)
+    same_w, _, _ = flip_waypoints(*ref, planner, flips=p_flips)
+    n_ref = int(np.max(ref_n))
+    fails = []
+    ties, errs = zip(*(procrustes_ties(ref[1][i][~ref[2][i]],
+                                       ref[0][i][~ref[2][i]])
+                       for i in range(len(ref_n))))
+    report = dict(
+        n_wps=p_n.tolist(), n_wps_ref=np.asarray(ref_n).tolist(),
+        flip_port=p_flips, flip_fixture=r_flips,
+        # the mirror images tie: a flip of each handedness in the tied set
+        # ((1, 1) always ties (-1, -1), a rotation by pi of it)
+        flip_tie=[bool({0, 3} & set(t) and {1, 2} & set(t)) for t in ties],
+        flips_tied=list(ties),
+        flip_gap_m=[e[p] - e[r] for e, p, r in zip(errs, p_flips, r_flips)],
+        fixture_wps_own_err_m=float(np.abs(r_w[:, :n_ref]
+                                           - ref_wps[:, :n_ref]).max()),
+        vio_wps_max_err_m=float(np.abs(p_w[:, :n_ref]
+                                       - same_w[:, :n_ref]).max()))
+    if report["n_wps"] != report["n_wps_ref"]:
+        fails.append(f"waypoint counts {report['n_wps']} differ from the "
+                     f"fixture's {report['n_wps_ref']}")
+    if report["fixture_wps_own_err_m"] != 0.0:
+        fails.append("the fixture's waypoints are not its own VIO track's "
+                     f"({report['fixture_wps_own_err_m']} m)")
+    for i, (k, t) in enumerate(zip(p_flips, ties)):
+        if k not in t:
+            fails.append(f"route {i}: the port keeps flip {k}, which does "
+                         f"not tie with the fixture's {t} (mean errors "
+                         f"{errs[i]})")
+    if not report["vio_wps_max_err_m"] <= FIX_VIO_ATOL_M:
+        fails.append(f"VIO waypoints differ from the fixture's under the "
+                     f"same flip ({report['vio_wps_max_err_m']} m > "
+                     f"{FIX_VIO_ATOL_M} m)")
+    return report, fails, r_flips
+
+
+def ours_fixture_phase(dev):
+    """Replay the JAX reference ours campaign (2 routes) and compare; the
+    teach waypoints by ``waypoint_flip_check``."""
+    import numpy as np
+    import torch
     from nclt_slam_tpu_torch import config
     from nclt_slam_tpu_torch.rollout import campaign
 
@@ -1842,18 +1955,29 @@ def ours_fixture_phase(dev):
     data = campaign.build_campaign(names, cfg=teach_cfg, device=dev)
     teach = campaign.run_campaign_teach(data, teach_cfg, n_teach,
                                         stop_when_done=False)
+    t = teach.trace
     wps, n_wps = campaign.teach_waypoints(data, teach, cfg)
+    own = (t.gt_xy, t.vio_xy, t.done)
+    flip_report, flip_fails, fx_flips = waypoint_flip_check(
+        own, (fx["teach_gt_xy"], fx["teach_vio_xy"], fx["teach_done"]),
+        fx["wps"], fx["n_wps"], cfg.planner)
+    # the repeats below take the port's VIO track aligned under the
+    # fixture's flip, so that they replay the fixture's repeat, whichever
+    # of two tied flips the port's teach keeps
+    run_w, run_n, _ = flip_waypoints(*own, cfg.planner, flips=fx_flips)
+    wps_check, _, _ = flip_waypoints(*own, cfg.planner)
+    check(same_bits(torch.from_numpy(wps_check), wps.cpu()),
+          "flip_waypoints does not give teach_waypoints' waypoints")
+    wps = torch.from_numpy(run_w).to(dev)
+    n_wps = torch.from_numpy(run_n).to(dev)
     rep = campaign.run_campaign_repeat(data, teach.teach_grid, wps, n_wps,
                                        cfg, n_rep, stores=teach.store,
                                        stop_when_done=False)
-    t, r = teach.trace, rep.trace
+    r = rep.trace
     t_err, t_start = divergence(t.gt_xy, fx["teach_gt_xy"])
     v_err, v_start = divergence(t.vio_xy, fx["teach_vio_xy"])
     r_err, r_start = divergence(r.gt_xy, fx["repeat_gt_xy"])
     n_err, n_start = divergence(r.nav_xy, fx["repeat_nav_xy"])
-    n_ref = int(fx["n_wps"].max())
-    wp_err = float(np.abs(wps.cpu().numpy()[:, :n_ref]
-                          - fx["wps"][:, :n_ref]).max())
     report = dict(
         routes=names, teach_ticks=n_teach, repeat_ticks=n_rep,
         teach_gt_xy_max_err_m=t_err, teach_divergence_from_tick=t_start,
@@ -1861,8 +1985,7 @@ def ours_fixture_phase(dev):
         teach_done_equal=bool(np.array_equal(t.done, fx["teach_done"])),
         teach_vio_tracked_first_diff=first_diff(t.vio_tracked,
                                                 fx["teach_vio_tracked"]),
-        n_wps=n_wps.cpu().tolist(), n_wps_ref=fx["n_wps"].tolist(),
-        vio_wps_max_err_m=wp_err,
+        **flip_report,
         repeat_gt_xy_max_err_m=r_err, repeat_divergence_from_tick=r_start,
         repeat_nav_xy_max_err_m=n_err, repeat_nav_divergence_from_tick=n_start,
         committed=rep.final.fusion.committed.cpu().tolist(),
@@ -1881,10 +2004,7 @@ def ours_fixture_phase(dev):
     check(report["teach_vio_tracked_first_diff"] is None,
           f"ours teach VIO match counts differ from the fixture from tick "
           f"{report['teach_vio_tracked_first_diff']}")
-    check(report["n_wps"] == report["n_wps_ref"],
-          "ours teach waypoint counts differ from the fixture")
-    check(wp_err <= FIX_VIO_ATOL_M, f"ours VIO waypoints differ from the "
-          f"fixture ({wp_err} m > {FIX_VIO_ATOL_M} m)")
+    check(not flip_fails, "ours teach waypoints: " + "; ".join(flip_fails))
     check(r_err <= FIX_REPEAT_ATOL_M, f"ours repeat diverged from "
           f"the JAX fixture ({r_err} m)")
     check(n_err <= FIX_NAV_ATOL_M, f"ours repeat nav pose diverged from "
@@ -3708,7 +3828,7 @@ def _http(port, path, body=None):
 
 def live_phase(dev):
     """``cli.live.main`` in-process on a thread (``--route 01_road --mode
-    ours --teach-ticks 300 --chunk 25 --max-chunks 8`` on a free port),
+    ours --teach-ticks 200 --chunk 25 --max-chunks 5`` on a free port),
     launch counts set to 0 just before: fetch the page, the scene, the
     depth PNG (its signature and a 320x240 IHDR) and the state until its
     tick advances; POST a goal and see it in the state.  The drive loop's
@@ -3956,7 +4076,7 @@ def horn_batch_check(dev):
 
 def seed_block(shared, mode: str, untiled, dev):
     """``mode`` (rgbd or ours, the modes that run the anchor matcher) at
-    ``SEED_MATCHER_SEEDS`` as 60 batch rows for ``SEED_MATCHER_TICKS``:
+    ``SEED_MATCHER_SEEDS`` as 120 batch rows for ``SEED_MATCHER_TICKS``:
     seed 1's rows bit-equal in every trace field to the first ticks of
     ``untiled``, 11a's untiled 15-row run of the mode (the same code at the
     same shapes as ``repeat_phase`` at seed 1), the matcher's K1 launched
@@ -4123,6 +4243,106 @@ def seed_axis_phase(shared, untiled, dev):
     return report
 
 
+def phase_timer(phase_s):
+    """``timed(fn, *args)``: ``fn(*args)``, its wall seconds into
+    ``phase_s`` under its name."""
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        res = fn(*args)
+        phase_s[fn.__name__] = time.perf_counter() - t0
+        return res
+    return timed
+
+
+def fixture_group(dev, seed, card, timed):
+    """Phases 6-8b and 8d: the JAX fixture replays."""
+    timed(fixture_phase, dev)
+    ours_fx = timed(ours_fixture_phase, dev)
+    timed(rgbd_ba_fixture_phase, ours_fx, dev)
+    timed(baseline_fixture_phase, ours_fx, dev)
+    timed(stock_stall_phase, ours_fx, dev)
+    del ours_fx
+    timed(slam_fixture_phase, dev)
+    timed(benchmark_fixture_phase, dev)
+    return {}
+
+
+def dataset_group(dev, seed, card, timed):
+    """Phases 8c, 8e and 11c-11h: the dataset half, the command-line front
+    ends, the live server, place recognition and the calibration tool's
+    split path, each of which builds its own campaign or session."""
+    timed(scene_gen_phase)
+    return dict(rgbd_slam=timed(rgbd_slam_phase, dev),
+                slam=timed(slam_main_path_phase, dev, card),
+                cli=timed(cli_phase, dev),
+                bench_cli=timed(benchmark_cli_phase, dev),
+                live=timed(live_phase, dev),
+                place_recognition=timed(place_recognition_phase, dev, seed),
+                calibrate_split=timed(calibrate_split_phase, dev))
+
+
+# phase groups run in child processes beside the main process's campaign
+# phases (9-11b, 11i): the eager tick is bound by its host thread, so
+# three processes share the card at about the speed of one
+PHASE_GROUPS = {"fixtures": fixture_group, "dataset": dataset_group}
+GROUP_DIR = REPO / "build" / "smoke_groups"
+
+
+def plain_json(x):
+    """A numpy or torch scalar or array as a JSON value."""
+    return x.tolist() if hasattr(x, "tolist") else str(x)
+
+
+def start_group(name: str, seed: int):
+    """Start ``python3 chip_smoke.py --group name`` on the same card, its
+    output into a log under ``GROUP_DIR``.  Returns (process, name)."""
+    GROUP_DIR.mkdir(parents=True, exist_ok=True)
+    (GROUP_DIR / f"{name}.json").unlink(missing_ok=True)
+    with open(GROUP_DIR / f"{name}.log", "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--group", name,
+             "--seed", str(seed)], stdout=log, stderr=subprocess.STDOUT,
+            cwd=REPO)
+    return proc, name
+
+
+def finish_group(child, phase_s) -> dict:
+    """Wait for a group's process, print its output, add its phase seconds
+    to ``phase_s`` and return its results; fail if it failed."""
+    proc, name = child
+    rc = proc.wait()
+    print((GROUP_DIR / f"{name}.log").read_text(), end="", flush=True)
+    out = GROUP_DIR / f"{name}.json"
+    check(rc == 0 and out.is_file(), f"the {name} phase group failed "
+          f"(exit code {rc})")
+    data = json.loads(out.read_text())
+    phase_s.update(data["phase_seconds"])
+    return data["results"]
+
+
+def run_group(name: str, seed: int) -> int:
+    """The child's side of ``start_group``: load the kernels the main
+    process built, run the group's phases, write their results and phase
+    seconds to ``GROUP_DIR/name.json``."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    import nclt_slam_tpu_torch  # noqa: F401  (sets the TF32 switches)
+
+    phase_s = {}
+    timed = phase_timer(phase_s)
+    build_phase()
+    res = PHASE_GROUPS[name](torch.device("cuda", 0), seed, card_line(),
+                             timed)
+    (GROUP_DIR / f"{name}.json").write_text(json.dumps(
+        {"results": res, "phase_seconds": phase_s}, default=plain_json))
+    print(f"chip_smoke: the {name} phases passed", flush=True)
+    return 0
+
+
 def run(seed: int = 0, seed_axis_only: bool = False) -> int:
     import torch
 
@@ -4151,13 +4371,7 @@ def run(seed: int = 0, seed_axis_only: bool = False) -> int:
           and not torch.backends.cudnn.allow_tf32, "TF32 is on")
 
     phase_s = {}
-
-    def timed(fn, *args):
-        t0 = time.perf_counter()
-        res = fn(*args)
-        phase_s[fn.__name__] = time.perf_counter() - t0
-        return res
-
+    timed = phase_timer(phase_s)
     timed(build_phase)
     if seed_axis_only:
         # phase 11i and what it stands on: 11a's teach and stock run
@@ -4171,38 +4385,39 @@ def run(seed: int = 0, seed_axis_only: bool = False) -> int:
         print(f"chip_smoke: phase 11i passed in "
               f"{time.perf_counter() - t_start:.1f} s", flush=True)
         return 0
+    # the kernels are held and timed alone; then the phase groups that
+    # share no state with the campaign main paths run in child processes
+    # beside them, and the profiles last, alone again
     k2_rows = timed(kernel_phase, dev)
     k1_rows = timed(hamming_phase, dev)
     k3 = timed(ba_phase, dev)
     k4 = timed(pgo_phase, dev)
     pgo_determinism = timed(pgo_determinism_phase, dev)
-    timed(fixture_phase, dev)
-    ours_fx = timed(ours_fixture_phase, dev)
-    timed(rgbd_ba_fixture_phase, ours_fx, dev)
-    timed(baseline_fixture_phase, ours_fx, dev)
-    timed(stock_stall_phase, ours_fx, dev)
-    del ours_fx
-    timed(slam_fixture_phase, dev)
-    timed(benchmark_fixture_phase, dev)
-    timed(scene_gen_phase)
-    rgbd_slam = timed(rgbd_slam_phase, dev)
-    gt, gt_ctx = timed(main_path_phase, dev)
-    determinism, one_call = timed(determinism_phase, *gt_ctx)
-    mesh = timed(mesh_phase, gt_ctx, one_call)
-    del gt_ctx, one_call
-    ours, shared, ours_carry, ours_trace = timed(ours_main_path_phase, dev)
-    rgbd_ba, rgbd_trace = timed(rgbd_ba_main_path_phase, shared, dev)
-    base, base_traces = timed(baseline_main_path_phase, shared, dev)
-    timed(terrain_tex_phase, shared, ours_carry)
-    slam = timed(slam_main_path_phase, dev, card)
-    cli = timed(cli_phase, dev)
-    bench_cli = timed(benchmark_cli_phase, dev)
-    live = timed(live_phase, dev)
-    place_recognition = timed(place_recognition_phase, dev, seed)
-    timed(calibrate_split_phase, dev)
-    seed_axis = timed(seed_axis_phase, shared, dict(
-        stock=base_traces["stock"], rgbd=rgbd_trace, ours=ours_trace), dev)
-    del base_traces, rgbd_trace, ours_trace
+    children = [start_group(name, seed) for name in PHASE_GROUPS]
+    try:
+        gt, gt_ctx = timed(main_path_phase, dev)
+        determinism, one_call = timed(determinism_phase, *gt_ctx)
+        mesh = timed(mesh_phase, gt_ctx, one_call)
+        del gt_ctx, one_call
+        ours, shared, ours_carry, ours_trace = timed(ours_main_path_phase,
+                                                     dev)
+        rgbd_ba, rgbd_trace = timed(rgbd_ba_main_path_phase, shared, dev)
+        base, base_traces = timed(baseline_main_path_phase, shared, dev)
+        timed(terrain_tex_phase, shared, ours_carry)
+        seed_axis = timed(seed_axis_phase, shared, dict(
+            stock=base_traces["stock"], rgbd=rgbd_trace, ours=ours_trace),
+            dev)
+        del base_traces, rgbd_trace, ours_trace
+        results = {}
+        for child in children:
+            results.update(finish_group(child, phase_s))
+    finally:
+        for child in children:
+            if child[0].poll() is None:
+                child[0].kill()
+                child[0].wait()
+    rgbd_slam, slam, cli = (results[k] for k in ("rgbd_slam", "slam", "cli"))
+    bench_cli, live = results["bench_cli"], results["live"]
     ours_profile = timed(ours_profile_phase, shared, ours_carry)
     bench_profile = timed(benchmark_profile_phase, dev)
     timed(slam_profile_phase, dev)
@@ -4389,8 +4604,13 @@ def main(argv=None) -> int:
     ap.add_argument("--seed-axis-only", action="store_true",
                     help="run phase 11i alone (with the teach and the stock "
                     "run it compares with), without the result lines")
+    ap.add_argument("--group", choices=sorted(PHASE_GROUPS),
+                    help="run one phase group (the main process starts "
+                    "each in a child process of its own)")
     args = ap.parse_args(argv)
     try:
+        if args.group:
+            return run_group(args.group, args.seed)
         return run(args.seed, args.seed_axis_only)
     except SmokeError as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)

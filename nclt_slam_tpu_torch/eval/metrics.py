@@ -147,18 +147,19 @@ def aggregate_metrics(per_route: dict[str, dict]) -> dict:
 # 2-D Procrustes alignment (vio_drift_monitor port)
 # ---------------------------------------------------------------------------
 
-def procrustes_align_2d(vio_xy: np.ndarray, gt_xy: np.ndarray) -> np.ndarray:
-    """Align a 2-D VIO track to GT with the drift monitor's handedness-robust
-    4-flip rotation+translation Procrustes; returns the aligned track.  This
-    is the transform the reference applies when writing vio_pose_dense.csv
-    (the repeat waypoint source)."""
-    if len(vio_xy) < 2:
-        return np.asarray(gt_xy[: len(vio_xy)])
+PROCRUSTES_FLIPS = ((1, 1), (-1, 1), (1, -1), (-1, -1))
+
+
+def procrustes_flips_2d(vio_xy: np.ndarray, gt_xy: np.ndarray):
+    """The drift monitor's four axis flips of a 2-D VIO track (in
+    ``PROCRUSTES_FLIPS``' order), each rotation+translation aligned to GT:
+    returns (aligned tracks, a list of four (T, 2) arrays; their mean
+    alignment errors, a list of four scalars), in the input's dtype."""
     xg, yg = gt_xy[:, 0], gt_xy[:, 1]
     cxg, cyg = xg.mean(), yg.mean()
     dxg, dyg = xg - cxg, yg - cyg
-    best, best_mean = None, np.inf
-    for fx, fy in ((1, 1), (-1, 1), (1, -1), (-1, -1)):
+    tracks, errs = [], []
+    for fx, fy in PROCRUSTES_FLIPS:
         xv, yv = vio_xy[:, 0] * fx, vio_xy[:, 1] * fy
         dxv, dyv = xv - xv.mean(), yv - yv.mean()
         a = (dxv * dxg + dyv * dyg).sum()
@@ -167,10 +168,32 @@ def procrustes_align_2d(vio_xy: np.ndarray, gt_xy: np.ndarray) -> np.ndarray:
         c, s = np.cos(th), np.sin(th)
         rx = c * dxv - s * dyv + cxg
         ry = s * dxv + c * dyv + cyg
-        err = np.hypot(rx - xg, ry - yg).mean()
+        tracks.append(np.stack([rx, ry], -1))
+        errs.append(np.hypot(rx - xg, ry - yg).mean())
+    return tracks, errs
+
+
+def procrustes_pick(errs):
+    """Index of the flip the alignment keeps: the first of least mean error
+    (None when every error is NaN)."""
+    best, best_mean = None, np.inf
+    for k, err in enumerate(errs):
         if err < best_mean:
-            best, best_mean = np.stack([rx, ry], -1), err
+            best, best_mean = k, err
     return best
+
+
+def procrustes_align_2d(vio_xy: np.ndarray, gt_xy: np.ndarray) -> np.ndarray:
+    """Align a 2-D VIO track to GT with the drift monitor's handedness-robust
+    4-flip rotation+translation Procrustes; returns the aligned track.  This
+    is the transform the reference applies when writing vio_pose_dense.csv
+    (the repeat waypoint source).  On a straight track the flips about the
+    line tie, and rounding decides which one is kept."""
+    if len(vio_xy) < 2:
+        return np.asarray(gt_xy[: len(vio_xy)])
+    tracks, errs = procrustes_flips_2d(vio_xy, gt_xy)
+    k = procrustes_pick(errs)
+    return None if k is None else tracks[k]
 
 
 def procrustes_drift_2d(vio_xyz: np.ndarray, gt_xy: np.ndarray):

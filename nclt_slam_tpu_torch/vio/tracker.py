@@ -33,7 +33,7 @@ from typing import NamedTuple
 import torch
 
 from nclt_slam_tpu_torch.config import CameraConfig, VioConfig
-from nclt_slam_tpu_torch.core import prng
+from nclt_slam_tpu_torch.core import ordered, prng
 from nclt_slam_tpu_torch.core.quat import (
     mat_to_quat,
     quat_conj,
@@ -141,6 +141,18 @@ def _project(p_cam, cam: CameraConfig):
                         cam.fy * p_cam[..., 1] / z + cam.cy], -1)
 
 
+def _normal_equations(Jw, J, r):
+    """``J^T W J`` (B, 6, 6) and ``J^T W r`` (B, 6) of the weighted rows Jw
+    (B, N, 6), J (B, N, 6) and residuals r (B, N): broadcast products
+    summed over the N rows by ``ordered.tree_sum``, so that a route's
+    system does not depend on the rows beside it (on the card a batched
+    ``matmul`` summed the 768 rows in another order at 120 routes than at
+    15)."""
+    H = ordered.tree_sum(Jw[..., :, :, None] * J[..., :, None, :], 1)[:, 0]
+    g = ordered.tree_sum(Jw * r[..., None], 1)[:, 0]
+    return H, g
+
+
 def _pose_gn(pos0, q0, X_w, uv_obs, z_obs, w_pt, cam: CameraConfig,
              cfg: VioConfig, prior_pos=None, prior_q=None,
              w_prior_pos: float = 0.0, w_prior_rot: float = 0.0):
@@ -193,8 +205,8 @@ def _pose_gn(pos0, q0, X_w, uv_obs, z_obs, w_pt, cam: CameraConfig,
                           cfg.huber_px / r_norm.clamp_min(1e-6))
         Jw = J * (w_pt * hub)[..., None, None]
         Jf, Jwf = J.reshape(B, M * 3, 6), Jw.reshape(B, M * 3, 6)
-        H = torch.matmul(Jwf.transpose(-1, -2), Jf) + cfg.lm_damping * eye6
-        g = torch.matmul(Jwf.transpose(-1, -2), r.reshape(B, M * 3, 1))[..., 0]
+        H, g = _normal_equations(Jwf, Jf, r.reshape(B, M * 3))
+        H = H + cfg.lm_damping * eye6
         if prior_pos is not None:
             r_rot_p = so3_log(quat_mul(quat_conj(prior_q), q))
             H = H + torch.diag(diag)

@@ -22,6 +22,13 @@ do.  So a row's result does not depend on the rows beside it:
   point sets;
 - ``tests/data/torch_horn_tie_case.npz`` (``tools/torch_horn_case.py``),
   which the card compares its bits with, is the CPU's result now.
+
+The VIO's motion-only Gauss-Newton (``vio/tracker.py:_pose_gn``) sums its
+normal equations the same way (``_normal_equations``: ``J^T W J`` and
+``J^T W r`` by the pairwise tree over the 768 residual rows): 15 rows
+alone are bit-equal to the same rows first in a 120-row batch, and to a
+numpy float32 evaluation of the tree; the whole solve within
+``CPU_BATCH_ATOL`` (it takes ``sin`` and ``cos`` in ``so3_exp``).
 """
 
 import sys
@@ -31,7 +38,9 @@ import numpy as np
 import pytest
 import torch
 
+from nclt_slam_tpu_torch import config as tcfg
 from nclt_slam_tpu_torch.landmarks import matcher as tm
+from nclt_slam_tpu_torch.vio import tracker as ttr
 from torch_calibrate_common import CPU_BATCH_ATOL
 
 REPO = Path(__file__).resolve().parents[1]
@@ -314,3 +323,96 @@ def test_horn_fixture_is_the_cpus():
     gap = r.max(-1, keepdims=True) - r
     assert ((gap > 0) & (gap < 2.0 ** -20 * np.abs(r).max(-1, keepdims=True))
             ).any()
+
+
+# --- the VIO's normal equations ----------------------------------------------
+
+VIO_ROWS, VIO_BATCH, VIO_POINTS = 15, 120, 256
+
+
+def normal_rows(n_rows, seed):
+    """Weighted Jacobian rows, Jacobian rows and residuals of ``n_rows``
+    routes at the VIO's 256 points x 3 residuals."""
+    rng = np.random.RandomState(seed)
+    J = rng.normal(0.0, 300.0, (n_rows, VIO_POINTS * 3, 6)).astype(f32)
+    w = (rng.uniform(size=(n_rows, VIO_POINTS * 3, 1)) > 0.2) \
+        * rng.uniform(0.2, 1.0, (n_rows, VIO_POINTS * 3, 1))
+    r = rng.normal(0.0, 2.0, (n_rows, VIO_POINTS * 3)).astype(f32)
+    return (J * w).astype(f32), J, r
+
+
+def test_normal_equations_do_not_depend_on_the_batch():
+    small = normal_rows(VIO_ROWS, 11)
+    other = normal_rows(VIO_BATCH - VIO_ROWS, 1011)
+    big = [np.concatenate([a, b]) for a, b in zip(small, other)]
+    a = ttr._normal_equations(*t(*small))
+    b = ttr._normal_equations(*t(*big))
+    for i, (x, y) in enumerate(zip(a, b)):
+        assert same(x, y[:VIO_ROWS]), i
+
+
+def test_normal_equations_round_in_the_tree_order():
+    Jw, J, r = normal_rows(VIO_ROWS, 12)
+    H, g = ttr._normal_equations(*t(Jw, J, r))
+    H_np = tree_sum_np(Jw[..., :, :, None] * J[..., :, None, :], 1)[:, 0]
+    g_np = tree_sum_np(Jw * r[..., None], 1)[:, 0]
+    assert same(H.numpy(), H_np) and same(g.numpy(), g_np)
+
+
+def pose_gn_rows(n_rows, seed):
+    """``_pose_gn``'s inputs for ``n_rows`` routes: a body pose, 256 map
+    points 2-15 m ahead of it seen from the true pose with pixel and depth
+    noise, ~20 % of them unmatched, a perturbed start and an inertial
+    prior near the truth."""
+    rng = np.random.RandomState(seed)
+    cam = tcfg.ours().camera
+    yaw = rng.uniform(-np.pi, np.pi, n_rows)
+    q = np.stack([np.zeros(n_rows), np.zeros(n_rows), np.sin(yaw / 2),
+                  np.cos(yaw / 2)], -1).astype(f32)
+    pos = np.concatenate([rng.normal(0.0, 20.0, (n_rows, 2)),
+                          np.full((n_rows, 1), 0.3)], -1).astype(f32)
+    local = np.stack([rng.uniform(2.0, 15.0, (n_rows, VIO_POINTS)),
+                      rng.uniform(-4.0, 4.0, (n_rows, VIO_POINTS)),
+                      rng.uniform(-0.5, 2.0, (n_rows, VIO_POINTS))], -1)
+    c, s_ = np.cos(yaw)[:, None], np.sin(yaw)[:, None]
+    X = np.stack([c * local[..., 0] - s_ * local[..., 1],
+                  s_ * local[..., 0] + c * local[..., 1],
+                  local[..., 2]], -1) + pos[:, None]
+    X = X.astype(f32)
+    R = ttr.quat_to_mat(torch.from_numpy(q))
+    y = torch.matmul(torch.from_numpy(X) - torch.from_numpy(pos)[:, None], R)
+    p_cam = ttr.base_to_cam(y - ttr._t_bc(cam, "cpu"))
+    uv = (ttr._project(p_cam, cam).numpy()
+          + rng.normal(0.0, 0.7, (n_rows, VIO_POINTS, 2))).astype(f32)
+    z = (p_cam[..., 2].numpy()
+         + rng.normal(0.0, 0.02, (n_rows, VIO_POINTS))).astype(f32)
+    w_pt = (rng.uniform(size=(n_rows, VIO_POINTS)) > 0.2).astype(f32)
+    dq = rng.normal(0.0, 0.02, (n_rows, 1))
+    q0 = np.concatenate([np.zeros((n_rows, 2)), np.sin((yaw[:, None] + dq)
+                                                       / 2),
+                         np.cos((yaw[:, None] + dq) / 2)], -1).astype(f32)
+    pos0 = (pos + rng.normal(0.0, 0.1, pos.shape)).astype(f32)
+    prior_pos = (pos + rng.normal(0.0, 0.05, pos.shape)).astype(f32)
+    return pos0, q0, X, uv, z, w_pt, prior_pos, q
+
+
+@pytest.mark.parametrize("prior", [False, True])
+def test_pose_gn_rows_do_not_depend_on_the_batch(prior):
+    cam, vcfg = tcfg.ours().camera, tcfg.ours().vio
+    small = pose_gn_rows(VIO_ROWS, 13)
+    other = pose_gn_rows(VIO_BATCH - VIO_ROWS, 1013)
+    big = [np.concatenate([a, b]) for a, b in zip(small, other)]
+
+    def run(rows):
+        pos0, q0, X, uv, z, w, prior_pos, prior_q = t(*rows)
+        kw = dict(prior_pos=prior_pos, prior_q=prior_q, w_prior_pos=50.0,
+                  w_prior_rot=200.0) if prior else {}
+        return ttr._pose_gn(pos0, q0, X, uv, z, w, cam, vcfg, **kw)
+
+    a, b = run(small), run(big)
+    # the solve moved the perturbed start, and stayed finite
+    assert float((a[0] - torch.from_numpy(small[0])).abs().max()) > 1e-3
+    assert bool(torch.isfinite(a[0]).all() and torch.isfinite(a[1]).all())
+    for x, y in zip(a, b):
+        torch.testing.assert_close(y[:VIO_ROWS], x, rtol=0,
+                                   atol=CPU_BATCH_ATOL)

@@ -144,9 +144,10 @@ def main(argv=None) -> int:
 
     routes = (list(ALL_ROUTES) if args.routes == "all"
               else args.routes.split(","))
+    card = torch_calibrate.card_line(args.device)
     shared, _ = torch_calibrate.teach_phase(
         routes, args.teach_ticks, args.device, args.teach_ckpt, args.chunk,
-        None)
+        card)
     sync = (torch.cuda.synchronize if torch.device(args.device).type ==
             "cuda" else (lambda: None))
     runs = {}
@@ -162,7 +163,7 @@ def main(argv=None) -> int:
               f"{time.perf_counter() - t0:.1f} s", flush=True)
     r = len(shared[0].names)
     res = {"mode": args.mode, "ticks": args.ticks, "seeds": args.seeds,
-           "card": torch_calibrate.card_line(args.device),
+           "card": card,
            "first_difference": {
                k: first_differences(runs[k], runs["untiled"], r)
                for k in ("untiled_again", "seeds_1_2", "seeds")}}
