@@ -3961,14 +3961,17 @@ def calibrate_split_phase(dev):
                   exit_codes=rcs, ticks_executed=got["ticks_executed"],
                   wall_s=got["wall_s"], card=got["card"])
     print("calibrate_split " + json.dumps(report), flush=True)
+    card_dir = REPO / "artifacts" / "calibration_torch"
     parity = torch_campaign_parity.check(
-        REPO / "artifacts" / "calibration_torch",
-        REPO / "artifacts" / "calibration")
+        card_dir, REPO / "artifacts" / "calibration",
+        card_dir / "jax_cpu" if (card_dir / "jax_cpu").is_dir() else None)
     torch_campaign_parity.print_report(parity)
     report["parity_missed_bands"] = parity["missed_bands"]
+    rule = {m: c["verdict"]
+            for m, c in parity.get("cpu_reference", {}).items()}
     print("campaign_parity " + json.dumps(
-        {"held": parity["held"], "missed_bands": parity["missed_bands"]}),
-        flush=True)
+        {"held": parity["held"], "missed_bands": parity["missed_bands"],
+         "route_rule": rule}), flush=True)
     return report
 
 

@@ -13,6 +13,10 @@ committed card tables.  It needs no teach.
   just outside it, s = 0, two against three unseen routes, a missed band's
   verdict from chaos through outside to fault or unresolved; ``BANDS``
   and ``SPREAD`` still the values fixed before the card runs.
+- The route rule against JAX's own CPU runs (``route_rule``, ``--ref-cpu``)
+  on hand-made drifts, one case a verdict, and through ``check`` on
+  hand-made seed files; the committed ``jax_cpu/`` files run off the
+  committed teach.
 """
 
 import copy
@@ -23,6 +27,9 @@ import pytest
 
 from torch_calibrate_common import CARD_DIR, JAX_DIR, JAX_KEYS, SEED_DIR
 import torch_campaign_parity as parity  # noqa: E402
+
+CPU_DIR = "jax_cpu"
+FOUR = ("03_south", "05_ne_sw", "08_nw_sw", "11_nw_mid")
 
 
 def jax_tables(tmp_path, edit=None):
@@ -148,8 +155,10 @@ def test_committed_parity_report_is_the_checkers():
     them now (bands, verdicts, the attached probe evidence and the spread
     section over the seed tables)."""
     want = json.loads((CARD_DIR / "parity.json").read_text())
-    got = json.loads(json.dumps(parity.check(CARD_DIR, JAX_DIR)))
+    got = json.loads(json.dumps(parity.check(CARD_DIR, JAX_DIR,
+                                             CARD_DIR / CPU_DIR)))
     assert got == want
+    assert set(want["cpu_reference"]) == {"ours"}
     assert set(want["spread"]["modes"]) >= {"stock", "rgbd"}
 
 
@@ -376,3 +385,174 @@ def test_held_band_outside_spread_is_listed(tmp_path):
     assert {"band": "B3", "mode": "stock",
             "outside": ["avg_coverage_pct"]} in res["spread"]["held_outside"]
     assert res["spread"]["witness"]["stock"]["field"] == "cov_pct"
+
+
+# --- the route rule against JAX's own CPU runs ---------------------------
+
+PORT8 = [1.0, 1.2, 1.4, 1.6, 1.8, 2.0, 2.2, 2.4]
+
+
+@pytest.mark.parametrize("cpu,tpu,cpu_reach,want", [
+    # two routes with every JAX seed above every port seed
+    ({"a": [2.5, 3.0], "b": [2.6, 2.7], "c": [1.5, 2.0], "d": [1.1, 1.2]},
+     {"a": 9.0, "b": 9.0, "c": 9.0, "d": 9.0}, None, "fault"),
+    # one systematic route each way: not the same direction
+    ({"a": [2.5, 3.0], "b": [0.5, 0.7], "c": [1.5, 2.0], "d": [1.1, 1.2]},
+     {"a": 9.0, "b": 9.0, "c": 9.0, "d": 9.0}, None, "chaos"),
+    # no route systematic, the TPU above both on two routes
+    ({"a": [1.5, 2.9], "b": [1.1, 2.0], "c": [1.5, 2.0], "d": [1.1, 1.2]},
+     {"a": 9.0, "b": 3.0, "c": 2.0, "d": 1.3}, None, "platform"),
+    # no route systematic, the TPU outside on one route only
+    ({"a": [1.5, 2.9], "b": [1.1, 2.0], "c": [1.5, 2.0], "d": [1.1, 1.2]},
+     {"a": 9.0, "b": 2.0, "c": 2.0, "d": 1.3}, None, "chaos"),
+    # the reach route: every JAX seed short of the end, every port seed there
+    ({"a": [1.5, 2.9], "b": [1.1, 2.0], "c": [1.5, 2.0], "d": [1.1, 1.2]},
+     {"a": 9.0, "b": 3.0, "c": 2.0, "d": 1.3}, [False, False], "fault"),
+    # one JAX seed reaches it: no split
+    ({"a": [1.5, 2.9], "b": [1.1, 2.0], "c": [1.5, 2.0], "d": [1.1, 1.2]},
+     {"a": 9.0, "b": 3.0, "c": 2.0, "d": 1.3}, [False, True], "platform"),
+], ids=["fault_two_routes_above", "chaos_opposite_directions", "platform",
+        "chaos_tpu_outside_once", "fault_reach_route_split",
+        "platform_reach_route_shared"])
+def test_route_rule(cpu, tpu, cpu_reach, want):
+    port = {n: list(PORT8) for n in cpu}
+    reach_p = {parity.REACH_ROUTE: [True] * 8}
+    reach_c = {} if cpu_reach is None else {parity.REACH_ROUTE: cpu_reach}
+    res = parity.route_rule(port, cpu, tpu, reach_p, reach_c)
+    assert res["verdict"] == want
+    if want == "fault" and cpu_reach is None:
+        assert res["systematic"] == {"a": "jax_above", "b": "jax_above"}
+    if cpu_reach is not None:
+        assert res["reach_route"]["split"] is (not any(cpu_reach))
+
+
+def test_route_rule_is_the_fixed_one():
+    assert parity.ROUTE_RULE == {"quantity": "drift_mean",
+                                 "same_direction": 2, "tpu_outside": 2,
+                                 "reach_route": "08_nw_sw"}
+
+
+def four_route_table(ours, drift, reached=True, events=True):
+    """JAX's ours table cut to the four routes, each route's drift set."""
+    t = copy.deepcopy(ours)
+    t["per_route"] = {n: dict(t["per_route"][n], drift_mean=drift[n],
+                              reached_final=reached) for n in FOUR}
+    t["anchor"] = {n: t["anchor"][n] for n in FOUR}
+    t["teach_drift"] = {n: t["teach_drift"][n] for n in FOUR}
+    if events:
+        t["events"] = {n: {"snaps": 1, "jumps": 2} for n in FOUR}
+    return t
+
+
+@pytest.mark.parametrize("jax_cpu_drift,want", [(0.5, "platform"),
+                                                (20.0, "fault")])
+def test_ref_cpu_section(tmp_path, jax_cpu_drift, want):
+    """``check`` with ``--ref-cpu``: JAX's CPU seed file and the port's seed
+    file at the four routes give the route rule's verdict, the events of
+    both and, for ours' band outside the port's spread (its drift, 20 m
+    off the seeds), where the CPU runs lie."""
+    ours = json.loads((JAX_DIR / "ours.json").read_text())
+    (tmp_path / "port").mkdir()
+    port = jax_tables(tmp_path / "port")
+    seeds = [dict(copy.deepcopy(ours), repeat_ticks=100) for _ in range(8)]
+    for k, t in enumerate(seeds):
+        t["agg"]["avg_drift_mean"] += 20.0 + 0.1 * k
+    (port / parity.SEED_DIR).mkdir()
+    (port / parity.SEED_DIR / "ours.json").write_text(json.dumps({
+        "mode": "ours", "seeds": list(range(1, 9)), "rows": 120,
+        "tables": {str(k + 1): t for k, t in enumerate(seeds)}}))
+    cpu = tmp_path / CPU_DIR
+    cpu.mkdir()
+    tpu = {n: ours["per_route"][n]["drift_mean"] for n in FOUR}
+    low = min(tpu.values()) / 10
+    pt = {str(s): four_route_table(
+        ours, {n: low * (1 + 0.01 * s) for n in FOUR}) for s in range(1, 9)}
+    (cpu / "port_seeds_1_8.json").write_text(json.dumps(
+        {"mode": "ours", "seeds": list(range(1, 9)), "tables": pt}))
+    jt = {str(s): four_route_table(
+        ours, {n: low * jax_cpu_drift * 2 * (1 + 0.01 * s) for n in FOUR})
+        for s in (1, 2)}
+    (cpu / "ours.json").write_text(json.dumps(
+        {"mode": "ours", "seeds": [1, 2], "routes": list(FOUR),
+         "tables": jt, "platform": "cpu"}))
+    res = parity.check(port, JAX_DIR, cpu)
+    c = res["cpu_reference"]["ours"]
+    assert c["port_seeds"] == list(range(1, 9)) and c["teach_equal"]
+    assert c["port_sources"] == ["port_seeds_1_8.json"]
+    assert c["verdict"] == want
+    if want == "platform":
+        assert c["systematic"] == {} and len(c["tpu_outside"]) >= 2
+    else:
+        assert set(c["systematic"].values()) == {"jax_above"}
+    assert c["events"]["03_south"]["jax_cpu"] == {"snaps": [1, 1],
+                                                  "jumps": [2, 2]}
+    (b4,) = [b for b in c["bands"] if b["band"] == "B4"]
+    assert set(b4["routes"]) == set(FOUR)
+    assert parity.main(["--port-dir", str(port), "--ref-dir", str(JAX_DIR),
+                        "--ref-cpu", str(cpu)]) == 0
+    assert json.loads((port / "parity.json").read_text())[
+        "cpu_reference"]["ours"]["verdict"] == want
+
+
+def test_committed_jax_cpu_files_have_the_schema():
+    """JAX's CPU tables and the port's seed tables at the four routes, run
+    off the committed tables' teach: JAX's table keys and the events per
+    route, the executed ticks, wall seconds and the CPU or card line."""
+    d = CARD_DIR / CPU_DIR
+    teach = json.loads((CARD_DIR / "ours.json").read_text())["teach_drift"]
+    ref = json.loads((d / "ours.json").read_text())
+    assert ref["platform"] == "cpu" and ref["jax_version"]
+    assert ref["cpu"]["model"] and ref["cpu"]["cores"] >= 1
+    assert ref["routes"] == list(FOUR) and len(ref["seeds"]) >= 2
+    assert "H100" in ref["teach_meta"]["card"]
+    files = [ref] + [json.loads(f.read_text())
+                     for f in sorted(d.glob("port_seeds*.json"))]
+    assert len(files) >= 2
+    for f in files:
+        assert f["mode"] == "ours"
+        assert 0 < f["ticks_executed"]["repeat"] <= 12000
+        assert f["wall_s"]["repeat"] > 0
+        for t in f["tables"].values():
+            assert set(JAX_KEYS) <= set(t)
+            assert set(FOUR) <= set(t["per_route"])
+            assert {n: t["teach_drift"][n] for n in FOUR} == \
+                {n: teach[n] for n in FOUR}
+            assert set(FOUR) <= set(t["events"])
+            assert 0 < t["repeat_ticks"] <= f["ticks_executed"]["repeat"]
+    for f in files[1:]:
+        assert "H100" in f["card"]["teach"]
+        assert all("H100" in c for c in f["card"]["repeat"])
+
+
+def test_teach_card_names_only_the_same_teach(tmp_path):
+    """``--teach-card``: a table (and a seed file) of the recorded teach
+    that names no card takes the record's card line; a table of another
+    teach is refused."""
+    ours = json.loads((JAX_DIR / "ours.json").read_text())
+    drift = ours["teach_drift"]
+    record = tmp_path / "teach.json"
+    record.write_text(json.dumps({"teach_drift": drift, "teach_meta": {
+        "card": "NVIDIA H100 80GB HBM3, 700.00 W"}}))
+    port = tmp_path / "port"
+    (port / parity.SEED_DIR).mkdir(parents=True)
+    table = dict(ours, card={"teach": None, "repeat": ["x"]})
+    (port / "ours.json").write_text(json.dumps(table))
+    (port / "stock.json").write_text(json.dumps(
+        dict(table, card={"teach": "named", "repeat": ["x"]})))
+    (port / parity.SEED_DIR / "ours.json").write_text(json.dumps(
+        {"mode": "ours", "seeds": [1], "tables": {"1": ours},
+         "card": {"teach": None, "repeat": ["x"]}}))
+    got = parity.adopt_teach_card(port, record)
+    assert [f.name for f in got] == ["ours.json", "ours.json"]
+    for f in (port / "ours.json", port / parity.SEED_DIR / "ours.json"):
+        card = json.loads(f.read_text())["card"]
+        assert card["teach"] == "NVIDIA H100 80GB HBM3, 700.00 W"
+        assert card["teach_from"] == "teach.json"
+    assert json.loads((port / "stock.json").read_text())["card"][
+        "teach"] == "named"
+    other = copy.deepcopy(table)
+    first = next(iter(other["teach_drift"]))
+    other["teach_drift"][first] = [9.0, 9.0]
+    (port / "rgbd.json").write_text(json.dumps(other))
+    with pytest.raises(SystemExit, match="another teach"):
+        parity.adopt_teach_card(port, record)

@@ -110,8 +110,9 @@ def test_seed_blocks_are_the_untiled_runs(seed_runs):
 
 
 def test_seed_tables_split_the_batch(taught, seed_runs):
-    """``seed_tables``: each seed's table is the table of its own rows, over
-    its own stop tick; seed 1's table is the same beside seed 2 or 3."""
+    """``seed_tables``: each seed's table is the table of its own rows, with
+    their route events, over its own stop tick; seed 1's table is the same
+    beside seed 2 or 3."""
     shared = taught[0]
     tiled, _ = seed_runs
     drift = torch_calibrate.teach_drift(shared[0].names, shared[1].trace)
@@ -126,9 +127,12 @@ def test_seed_tables_split_the_batch(taught, seed_runs):
         per_route, agg = tcamp.campaign_metrics(
             shared[0], RepeatResult(trace=trace, final=None), shared[2],
             shared[3], torch_calibrate.mode_config("stock"))
-        want = torch_calibrate.table(
+        want = dict(torch_calibrate.table(
             shared[0].names, per_route, agg, drift,
-            torch_calibrate.anchor_outcomes(shared[0].names, trace), "stock")
+            torch_calibrate.anchor_outcomes(shared[0].names, trace), "stock"),
+            events=torch_calibrate.route_events(
+                shared[0].names, trace,
+                torch_calibrate.mode_config("stock").vio))
         assert dump(tables[SEEDS][s]) == dump((want, REPEAT_TICKS))
 
 

@@ -39,8 +39,10 @@ so it runs in pieces:
 
 - ``--teach-ckpt PATH``: a missing file is written after the teach (its
   map, landmark stores, trace, waypoints and timings); a present one is
-  loaded and no teach runs.  ``--mode teach`` stops there.  The campaign
-  data is rebuilt from the seed either way.
+  loaded and no teach runs (a teach of more routes gives the rows of the
+  routes asked for).  ``--mode teach`` stops there, and writes the
+  teach's drift and meta to ``--json``.  The campaign data is rebuilt
+  from the seed either way.
 - ``--repeat-ckpt PATH`` (``MODE`` replaced) with ``--budget-s S``: at a
   chunk boundary past which the next chunk would not fit in ``S`` seconds
   of the process, the repeat's carry and its trace so far are written
@@ -67,7 +69,8 @@ over the ticks its own untiled run would have executed (up to the first
 chunk boundary at which all of its routes are done), so it does not
 depend on the other seeds.  With any seeds but ``1`` alone, ``--json``
 gets one file holding a table per seed (``seeds``, ``tables``) beside the
-executed ticks, timings, peak device memory and card line:
+executed ticks, timings, peak device memory and card line; each table
+also counts the localization events per route (``route_events``):
 
     python3 tools/torch_calibrate.py --routes all --mode stock \
         --seeds 1-8 --teach-ckpt runs/teach.ckpt \
@@ -212,6 +215,73 @@ def anchor_outcomes(names, trace) -> dict:
     return out
 
 
+# VioAux.flags bits (vio/tracker.py): lost, relocalized, snap event fired
+FLAG_LOST, FLAG_RELOC, FLAG_SNAP = 3, 4, 5
+# a tick whose (nav - gt) offset moves by more than this is a jump [m]
+JUMP_M = 0.5
+# seconds between VIO frames: one frame a navigation tick (0.1 s)
+FRAME_DT = 0.1
+
+
+def route_events(names, trace, vio_cfg) -> dict:
+    """Per route counts of the localization events over LIVE ticks (route
+    not done), from the repeat trace both packages keep:
+
+    - ``stressed``: frames the snap model calls stressed, by
+      ``snap_stress_match_n`` on ``vio_tracked`` or ``snap_stress_rot`` on
+      the GT yaw rate (the model reads the VIO's own rotation, which the
+      trace does not keep); ``stress_armed``: such frames at least
+      ``snap_stress_min`` in a row;
+    - ``starved``: frames under ``snap_starve_match_n`` matches;
+      ``starve_armed``: at least ``snap_starve_min`` in a row;
+    - ``lost``, ``reloc``, ``snaps``: the VIO flags' bits;
+    - ``jumps``: ticks where ``|d(nav_xy - gt_xy)|`` exceeds ``JUMP_M``;
+    - ``published``: anchors published."""
+    done = np.asarray(trace.done)
+    tracked = np.asarray(trace.vio_tracked)
+    flags = np.asarray(trace.vio_flags)
+    yaw = np.asarray(trace.gt_yaw, np.float64)
+    off = np.asarray(trace.nav_xy, np.float64) - np.asarray(trace.gt_xy,
+                                                            np.float64)
+    ok = np.asarray(trace.anchor_ok)
+
+    def armed(x, n):
+        run, out = 0, np.zeros(len(x), bool)
+        for t, v in enumerate(x):
+            run = run + 1 if v else 0
+            out[t] = run >= n
+        return out
+
+    out = {}
+    for i, name in enumerate(names):
+        live = ~done[i]
+        dyaw = np.diff(yaw[i], prepend=yaw[i][:1])
+        rate = np.abs(np.arctan2(np.sin(dyaw), np.cos(dyaw))) / FRAME_DT
+        stressed = (tracked[i] < vio_cfg.snap_stress_match_n) | \
+            (rate > vio_cfg.snap_stress_rot)
+        starved = tracked[i] < vio_cfg.snap_starve_match_n
+        jump = np.linalg.norm(np.diff(off[i], axis=0, prepend=off[i][:1]),
+                              axis=-1) > JUMP_M
+        out[name] = {
+            "live_ticks": int(live.sum()),
+            "stressed": int((stressed & live).sum()),
+            "stress_armed": int((armed(stressed, vio_cfg.snap_stress_min)
+                                 & live).sum()),
+            "starved": int((starved & live).sum()),
+            "starve_armed": int((armed(starved, vio_cfg.snap_starve_min)
+                                 & live).sum()),
+            "lost": int((((flags[i] >> FLAG_LOST) & 1).astype(bool)
+                         & live).sum()),
+            "reloc": int((((flags[i] >> FLAG_RELOC) & 1).astype(bool)
+                          & live).sum()),
+            "snaps": int((((flags[i] >> FLAG_SNAP) & 1).astype(bool)
+                          & live).sum()),
+            "jumps": int((jump & live).sum()),
+            "published": int((ok[i] & live).sum()),
+        }
+    return out
+
+
 def run(route_names, mode: str, teach_ticks: int, repeat_ticks: int,
         device="cuda", shared=None, chunk: int = 250):
     """One mode's campaign in one call: the teach (unless ``shared``, the
@@ -307,16 +377,44 @@ def save_teach(path, shared, meta: dict):
 
 def load_teach(path, data, device):
     """A teach checkpoint -> ((data, teach, wps, n_wps), meta); the teach
-    has no final carry (a repeat starts from the waypoints)."""
+    has no final carry (a repeat starts from the waypoints).  A checkpoint
+    of more routes than ``data`` gives their rows (``teach_rows``)."""
     from nclt_slam_tpu_torch.io.artifacts import load_checkpoint
     from nclt_slam_tpu_torch.rollout.teach import TeachResult, TeachTrace
 
     blob = load_checkpoint(path, device)
+    names = list(data.names)
+    if blob["meta"]["routes"] != names and set(names) <= set(
+            blob["meta"]["routes"]):
+        blob = teach_rows(blob, names)
     trace = TeachTrace(*(x.cpu().numpy() for x in blob["trace"]))
     teach = TeachResult(trace=trace, teach_grid=blob["grid"],
                         store=blob["store"],
                         n_ticks=blob["n_ticks"].cpu(), final=None)
     return (data, teach, blob["wps"], blob["n_wps"]), blob["meta"]
+
+
+def teach_rows(blob: dict, names) -> dict:
+    """The rows of routes ``names`` of a loaded teach checkpoint: every
+    tensor of it leads with the route axis, and the campaign is rebuilt
+    per route, so the subset is those routes' teach to the bit (a repeat
+    of a few routes off a 15-route teach)."""
+    import torch
+
+    meta = blob["meta"]
+    rows = torch.tensor([meta["routes"].index(n) for n in names])
+
+    def pick(tree):
+        if isinstance(tree, torch.Tensor):
+            return tree[rows.to(tree.device)]
+        if isinstance(tree, dict):
+            return {k: pick(v) for k, v in tree.items()}
+        return type(tree)(*(pick(x) for x in tree))
+
+    out = pick({k: v for k, v in blob.items() if k != "meta"})
+    out["meta"] = dict(meta, routes=list(names),
+                       subset_of=meta.get("subset_of", meta["routes"]))
+    return out
 
 
 def teach_phase(route_names, teach_ticks: int, device, ckpt, chunk: int,
@@ -510,8 +608,10 @@ def seed_tables(shared, rep, mode: str, seeds, repeat_ticks: int,
         per_route, agg = campaign_metrics(
             data, RepeatResult(trace=trace, final=None), wps, n_wps,
             mode_config(mode))
-        out[s] = (table(data.names, per_route, agg, drift,
-                        anchor_outcomes(data.names, trace), mode), n)
+        out[s] = (dict(table(data.names, per_route, agg, drift,
+                             anchor_outcomes(data.names, trace), mode),
+                       events=route_events(data.names, trace,
+                                           mode_config(mode).vio)), n)
     return out
 
 
@@ -648,6 +748,16 @@ def main(argv=None):
                                      args.teach_ckpt, args.chunk, card)
     data, teach = shared[:2]
     drift = teach_drift(data.names, teach.trace)
+    if args.mode == "teach":
+        for name, (mean, mx) in drift.items():
+            print(f"teach_drift {name:<16} {mean!r} {mx!r}")
+        if args.json is not None:
+            path = Path(args.json)
+            path.parent.mkdir(parents=True, exist_ok=True)
+            path.write_text(json.dumps({"teach_drift": drift,
+                                        "teach_meta": teach_meta},
+                                       indent=1, default=float))
+            print(f"wrote {path}")
     for mode in modes:
         out = repeat_phase(shared, mode, args.ticks, args.chunk, ckpts[mode],
                            args.budget_s, t_process, card, args.seeds)

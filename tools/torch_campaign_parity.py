@@ -57,9 +57,25 @@ a probe found a stage that differs on JAX's inputs, "chaos" when every
 probe's checks held and ran every deciding stage, "unresolved" when a
 deciding stage was never checked or no probe of the mode exists.
 
+``--ref-cpu DIR`` (``tools/torch_jax_reference_probe.py``'s ``MODE.json``,
+JAX's seed tables on the CPU off the port's own teach at a few routes,
+and the port's seed files at the same routes, ``port_seeds*.json``) adds
+the ``cpu_reference`` section: per route the port's card ``drift_mean``
+over its seeds (P_r), JAX's CPU one over its seeds (J_r) and the TPU
+table's, and the route rule (``route_rule``, fixed before the first
+such run): r is systematic when min J_r > max P_r or max J_r < min P_r;
+the mode is "fault" when 2 or more routes are systematic in the same
+direction, or when at ``REACH_ROUTE`` every JAX seed misses
+``reached_final`` while every port seed reaches it (or the reverse);
+"platform" when no route is systematic and the TPU's value lies outside
+the range of P_r and J_r together on 2 or more routes; "chaos"
+otherwise.  For each band outside the port's spread it lists, at those
+routes, where JAX's CPU runs lie beside the port's seeds and the TPU.
+
     python3 tools/torch_campaign_parity.py \\
         [--port-dir artifacts/calibration_torch] \\
         [--ref-dir artifacts/calibration] \\
+        [--ref-cpu artifacts/calibration_torch/jax_cpu] \\
         [--out artifacts/calibration_torch/parity.json] [--adopt-seed1 ours]
 
 Prints every band's value, limit and verdict; exits 0 whether or not a
@@ -116,6 +132,12 @@ T995 = {1: 63.656741, 2: 9.924843, 3: 5.840909, 4: 4.604095, 5: 4.032143,
         15: 2.946713}
 # B1's counts and the per-route flags they count (B2's quantities)
 FLAGS = {"reach": "reached_final", "return": "returned_spawn"}
+
+# The route rule against JAX's own CPU runs (--ref-cpu): fixed before the
+# first such run, never moved after.
+ROUTE_RULE = {"quantity": "drift_mean", "same_direction": 2,
+              "tpu_outside": 2, "reach_route": "08_nw_sw"}
+REACH_ROUTE = ROUTE_RULE["reach_route"]
 
 
 def row(band, mode, quantity, port, jax, limit, held, **extra):
@@ -384,7 +406,172 @@ def adopt_seed1(port_dir: Path, mode: str) -> Path:
     return out
 
 
-def check(port_dir: Path, ref_dir: Path) -> dict:
+def route_rule(port: dict, cpu: dict, tpu: dict, port_reached: dict,
+               cpu_reached: dict) -> dict:
+    """The route rule (``ROUTE_RULE``) on per-route ``drift_mean`` values:
+    ``port`` and ``cpu`` map a route to its values over the seeds, ``tpu``
+    to the TPU table's value; ``*_reached`` map a route to its seeds'
+    ``reached_final`` flags."""
+    routes = {}
+    for n in cpu:
+        p, j, t = port[n], cpu[n], tpu[n]
+        side = ("jax_above" if min(j) > max(p) else
+                "jax_below" if max(j) < min(p) else None)
+        both = p + j
+        routes[n] = {"port": p, "jax_cpu": j, "tpu": t,
+                     "port_range": [min(p), max(p)],
+                     "jax_cpu_range": [min(j), max(j)],
+                     "systematic": side,
+                     "tpu_outside": not min(both) <= t <= max(both)}
+    sides = [r["systematic"] for r in routes.values() if r["systematic"]]
+    reach = None
+    if REACH_ROUTE in cpu_reached and REACH_ROUTE in port_reached:
+        pf, jf = port_reached[REACH_ROUTE], cpu_reached[REACH_ROUTE]
+        reach = {"port": pf, "jax_cpu": jf,
+                 "split": (all(pf) and not any(jf))
+                 or (all(jf) and not any(pf))}
+    fault = any(sides.count(d) >= ROUTE_RULE["same_direction"]
+                for d in ("jax_above", "jax_below")) or bool(
+        reach and reach["split"])
+    n_out = sum(r["tpu_outside"] for r in routes.values())
+    if fault:
+        verdict = "fault"
+    elif not sides and n_out >= ROUTE_RULE["tpu_outside"]:
+        verdict = "platform"
+    else:
+        verdict = "chaos"
+    return {"rule": ROUTE_RULE, "routes": routes,
+            "systematic": {n: r["systematic"] for n, r in routes.items()
+                           if r["systematic"]},
+            "tpu_outside": [n for n, r in routes.items() if r["tpu_outside"]],
+            "reach_route": reach, "verdict": verdict}
+
+
+def route_values(tables: list, band: str, quantity: str, routes) -> dict:
+    """Route -> the values of a band's quantity over ``tables`` (B1 and B2:
+    the per-route flag as 0 / 1)."""
+    out = {}
+    for n in routes:
+        vals = []
+        for t in tables:
+            if band in ("B1", "B2"):
+                f = FLAGS.get(quantity, quantity)
+                vals.append(float(bool(t["per_route"][n][f])))
+            else:
+                vals.append(scalar_quantities(t, band)[quantity][1][n])
+        out[n] = vals
+    return out
+
+
+def cpu_reference(cpu_dir: Path, jax: dict, spread_res: dict | None) -> dict:
+    """The ``cpu_reference`` section: for each mode with JAX's CPU seed
+    file in ``cpu_dir``, the route rule at its routes against the port's
+    seeds there (``port_seeds*.json``) and the TPU table, each table's
+    events, and for each band of the mode outside the port's spread where
+    JAX's CPU runs lie at those routes."""
+    out = {}
+    for f in sorted(cpu_dir.glob("*.json")):
+        if f.stem not in BANDED:
+            continue
+        mode = f.stem
+        ref = json.loads(f.read_text())
+        routes = list(ref["routes"])
+        cpu = [ref["tables"][str(s)] for s in ref["seeds"]]
+        port = {}
+        for p in sorted(cpu_dir.glob("port_seeds*.json")):
+            d = json.loads(p.read_text())
+            if d["mode"] != mode:
+                continue
+            for s in d["seeds"]:
+                t = d["tables"][str(s)]
+                if s not in port and set(routes) <= set(t["per_route"]):
+                    port[s] = dict(t, source=p.name)
+        seeds = sorted(port)
+        ptabs = [port[s] for s in seeds]
+        drift = {q: route_values(ts, "B4", "avg_drift_mean", routes)
+                 for q, ts in (("port", ptabs), ("cpu", cpu))}
+        reached = {q: route_values(ts, "B2", "reached_final", routes)
+                   for q, ts in (("port", ptabs), ("cpu", cpu))}
+        rule = route_rule(drift["port"], drift["cpu"],
+                          {n: jax[mode]["per_route"][n]["drift_mean"]
+                           for n in routes},
+                          {n: [bool(v) for v in vs]
+                           for n, vs in reached["port"].items()},
+                          {n: [bool(v) for v in vs]
+                           for n, vs in reached["cpu"].items()})
+        teach = {n: ref["tables"][str(ref["seeds"][0])]["teach_drift"][n]
+                 for n in routes}
+        res = {"routes": routes, "jax_cpu_seeds": ref["seeds"],
+               "port_seeds": seeds,
+               "port_sources": sorted({port[s]["source"] for s in seeds}),
+               "teach_equal": all(
+                   {n: t["teach_drift"][n] for n in routes} == teach
+                   for t in ptabs),
+               "jax_cpu": {"platform": ref.get("platform"),
+                           "cpu": ref.get("cpu"),
+                           "jax_version": ref.get("jax_version"),
+                           "ticks_executed": ref.get("ticks_executed")},
+               **rule, "events": {}, "bands": []}
+        for n in routes:
+            res["events"][n] = {
+                q: {k: [t["events"][n][k] for t in ts]
+                    for k in ts[0]["events"][n]}
+                for q, ts in (("port", [t for t in ptabs if "events" in t]),
+                              ("jax_cpu", cpu)) if ts and "events" in ts[0]}
+        bands = [] if spread_res is None else [
+            q for q in spread_res["modes"].get(mode, {}).get(
+                "quantities", []) if not q["within"]]
+        for q in bands:
+            name = q["quantity"]
+            pv = route_values(ptabs, q["band"], name, routes)
+            jv = route_values(cpu, q["band"], name, routes)
+            tv = route_values([jax[mode]], q["band"], name, routes)
+            res["bands"].append({
+                "band": q["band"], "quantity": name,
+                "routes": {n: {"port": pv[n], "jax_cpu": jv[n],
+                               "tpu": tv[n][0],
+                               "jax_cpu_within_port": all(
+                                   min(pv[n]) <= v <= max(pv[n])
+                                   for v in jv[n]),
+                               "tpu_within_port_and_cpu": min(
+                                   pv[n] + jv[n]) <= tv[n][0] <= max(
+                                   pv[n] + jv[n])}
+                           for n in routes}})
+        out[mode] = res
+    return out
+
+
+def adopt_teach_card(port_dir: Path, teach_json: Path) -> list:
+    """Name the card of the teach in every table of ``port_dir`` (and its
+    seed files) whose ``card.teach`` is null: ``teach_json`` is
+    ``tools/torch_calibrate.py --mode teach --json``'s record of a teach
+    run on the card; a table takes its card line only if its teach drift
+    equals that teach's to the bit (the teach is reproducible on the card,
+    so the two are one teach), and records the file it took it from.
+    Returns the files rewritten."""
+    teach = json.loads(teach_json.read_text())
+    card = teach["teach_meta"]["card"]
+    if not card:
+        raise SystemExit(f"{teach_json} names no card")
+    out = []
+    for f in sorted(port_dir.glob("*.json")) + sorted(
+            (port_dir / SEED_DIR).glob("*.json")):
+        t = json.loads(f.read_text())
+        if not isinstance(t.get("card"), dict) or t["card"].get("teach"):
+            continue
+        tables = [t] if "per_route" in t else list(t["tables"].values())
+        drift = json.loads(json.dumps(teach["teach_drift"]))
+        if any(x["teach_drift"] != {n: drift[n] for n in x["teach_drift"]}
+               for x in tables):
+            raise SystemExit(f"{f}: another teach than {teach_json}'s")
+        t["card"]["teach"] = card
+        t["card"]["teach_from"] = teach_json.name
+        f.write_text(json.dumps(t, indent=1))
+        out.append(f)
+    return out
+
+
+def check(port_dir: Path, ref_dir: Path, ref_cpu: Path | None = None) -> dict:
     port = {m: json.loads((port_dir / f"{m}.json").read_text())
             for m in BANDED}
     jax = {m: json.loads((ref_dir / f"{m}.json").read_text())
@@ -415,6 +602,8 @@ def check(port_dir: Path, ref_dir: Path) -> dict:
     sp = spread(port_dir, jax, port, rows, probes)
     if sp is not None:
         res["spread"] = sp
+    if ref_cpu is not None:
+        res["cpu_reference"] = cpu_reference(ref_cpu, jax, sp)
     return res
 
 
@@ -463,7 +652,30 @@ def print_report(res: dict) -> None:
               f"parting at tick {part.get('tick')}, "
               f"{len(rep.get('checks', []))} ticks checked (stages "
               f"{', '.join(rep.get('stages_checked', []))}): {p['verdict']}")
+    for m, c in res.get("cpu_reference", {}).items():
+        print_cpu_reference(m, c)
     print(f"missed bands: {res['missed_bands'] or 'none'}")
+
+
+def print_cpu_reference(mode: str, c: dict) -> None:
+    print(f"=== {mode}: JAX on the CPU (seeds {c['jax_cpu_seeds']}) against "
+          f"the port's seeds {c['port_seeds']} off one teach "
+          f"({'equal' if c['teach_equal'] else 'DIFFERENT'} teach drift) ===")
+    for n, r in c["routes"].items():
+        print(f"  {n:<14} drift port [{r['port_range'][0]:.3f}, "
+              f"{r['port_range'][1]:.3f}]  jax cpu [{r['jax_cpu_range'][0]:.3f}"
+              f", {r['jax_cpu_range'][1]:.3f}]  tpu {r['tpu']:.3f}  "
+              f"systematic {r['systematic']}  tpu outside {r['tpu_outside']}")
+    if c["reach_route"] is not None:
+        print(f"  {REACH_ROUTE} reached_final: port {c['reach_route']['port']}"
+              f", jax cpu {c['reach_route']['jax_cpu']}")
+    for b in c["bands"]:
+        for n, r in b["routes"].items():
+            print(f"  {b['band']} {b['quantity']:<20} {n:<14} port "
+                  f"{[round(v, 3) for v in r['port']]} jax cpu "
+                  f"{[round(v, 3) for v in r['jax_cpu']]} tpu "
+                  f"{r['tpu']:.3f}")
+    print(f"  route rule: {c['verdict']}")
 
 
 def print_spread(sp: dict) -> None:
@@ -505,18 +717,29 @@ def main(argv=None) -> int:
                     default=REPO / "artifacts" / "calibration")
     ap.add_argument("--out", type=Path, default=None,
                     help="parity.json (default: in --port-dir)")
+    ap.add_argument("--ref-cpu", type=Path, default=None,
+                    help="JAX's CPU seed tables off the port's teach and "
+                         "the port's seeds at those routes "
+                         "(tools/torch_jax_reference_probe.py)")
+    ap.add_argument("--teach-card", type=Path, default=None,
+                    help="a teach's record (torch_calibrate.py --mode teach "
+                         "--json): name its card in the tables of that "
+                         "teach that name none")
     ap.add_argument("--adopt-seed1", choices=BANDED, action="append",
                     default=[], help="replace the mode's table by its seed "
                     "file's seed-1 table first")
     args = ap.parse_args(argv)
     for m in args.adopt_seed1:
         print(f"wrote {adopt_seed1(args.port_dir, m)}")
+    if args.teach_card is not None:
+        for f in adopt_teach_card(args.port_dir, args.teach_card):
+            print(f"named the teach's card in {f}")
     missing = [str(d / f"{m}.json") for d in (args.port_dir, args.ref_dir)
                for m in BANDED if not (d / f"{m}.json").is_file()]
     if missing:
         print(f"missing tables: {missing}", file=sys.stderr)
         return 2
-    res = check(args.port_dir, args.ref_dir)
+    res = check(args.port_dir, args.ref_dir, args.ref_cpu)
     print_report(res)
     out = args.out or args.port_dir / "parity.json"
     out.write_text(json.dumps(res, indent=1) + "\n")
